@@ -1,0 +1,187 @@
+"""Kernel routing, the build, and the launch counters.
+
+Each public function here routes by the device of the tensors it is
+given: a CPU tensor goes to the plain PyTorch version in
+:mod:`repro_torch.kernels.ref`, a CUDA tensor to the hand-written CUDA
+kernel (``csrc/``), and anything else raises. There is no fallback from
+the kernel to the plain version.
+
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+three sources compile in parallel; the library is keyed by the sources'
+content, under ``build/repro_torch`` at the repository root. Each CUDA
+wrapper adds one to its launch counter (:func:`launches`) right after
+its kernel launched, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.bloom_probe import bloom_probe_cuda
+from repro_torch.kernels.policy_vm import policy_vm_cuda
+from repro_torch.kernels.slot_scan import ScanParams, slot_scan_cuda
+
+KERNELS = ("bloom_probe", "policy_vm", "slot_scan")
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu")
+_HEADERS = ("common.cuh", "policy_vm.cuh")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LAUNCHES = {name: 0 for name in KERNELS}
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_INFO: dict = {}
+
+
+def launches() -> dict:
+    """Kernel launches counted since the last :func:`reset_launches`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a refused launch (``cudaGetLastError`` != 0), else count it."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _LAUNCHES[name] += 1
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the kernels into one shared library (once per content
+    digest) and return its path. Records timings and the compiler's
+    register / spill report in :data:`BUILD_INFO`."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    out_dir = BUILD_DIR
+    lib_path = out_dir / f"libreprotorch_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)
+        return lib_path
+    nvcc = _nvcc()
+    work = out_dir / f"work-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in _SOURCES:
+        obj = work / (src[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    log = "\n".join(logs)
+    (work / "build.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    tmp = work / lib_path.name
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+    shutil.copy(work / "build.log", out_dir / "build.log")
+    shutil.rmtree(work, ignore_errors=True)
+    BUILD_INFO.update(
+        path=str(lib_path), seconds=time.perf_counter() - t0, cached=False,
+        ptxas=[ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln])
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.bloom_probe_launch.argtypes = [vp, i, i, vp, vp, i, i, i, i,
+                                               vp]
+            lib.policy_vm_launch.argtypes = [vp, i, i, vp, i, vp, vp]
+            lib.slot_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 12
+            lib.slot_scan_num_params.argtypes = []
+            for fn in (lib.bloom_probe_launch, lib.policy_vm_launch,
+                       lib.slot_scan_launch, lib.slot_scan_num_params):
+                fn.restype = i
+            n = lib.slot_scan_num_params()
+            if n != len(ScanParams.__dataclass_fields__):
+                raise RuntimeError(f"slot_scan.cu takes {n} params, "
+                                   f"ScanParams has "
+                                   f"{len(ScanParams.__dataclass_fields__)}")
+            _LIB = lib
+        return _LIB
+
+
+def _route(name: str, t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{t.device}")
+
+
+def bloom_probe(words: torch.Tensor, keys: torch.Tensor, k: int,
+                m_bits: int) -> torch.Tensor:
+    """words int32 ``[Bw, W]``, keys int32 ``[B, N]`` -> int8 ``[B, N]``."""
+    if _route("bloom_probe", keys) == "cpu":
+        return ref.bloom_probe_ref(words, keys, k, m_bits)
+    return bloom_probe_cuda(words, keys, k, m_bits)
+
+
+def policy_vm(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
+    """tables ``[P, L + 1, 4]`` x env ``[N_LOADS, Q]`` -> ``[P, 3, Q]``."""
+    if _route("policy_vm", tables) == "cpu":
+        return ref.policy_vm_ref(tables, envm)
+    return policy_vm_cuda(tables, envm)
+
+
+def slot_scan(kind, bank, row, delta, dep, weak, tables, costs,
+              p: ScanParams) -> dict:
+    """One batch group's whole slot scan (see ``kernels/slot_scan.py``)."""
+    if _route("slot_scan", kind) == "cpu":
+        return ref.slot_scan_ref(kind, bank, row, delta, dep, weak, tables,
+                                 costs, p)
+    return slot_scan_cuda(kind, bank, row, delta, dep, weak, tables, costs, p)

@@ -12,6 +12,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "filterwarnings",
         "ignore:Some donated buffers were not usable")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA (skipped without one)")
 
 
 def tiny_cfg(name, **over):

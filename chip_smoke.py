@@ -17,11 +17,18 @@ Phases, one line each:
 5. the main path at full size with the launch counters reset just before
    it: the tRCD case study over twelve PolyBench kernels (base and
    reduced arms, ``ts`` and ``reference`` in one batch), the RowClone
-   case study (copy and init at 64 KiB, 1 MiB, 4 MiB) and a policy sweep
-   (screening with ``policy_vm`` and ``run_policies`` over the
-   built-ins);
-6. each kernel's launches on the main path, its time at the main path's
-   shapes beside its plain version's and its bound.
+   case study (copy and init at 64 KiB, 1 MiB, 4 MiB) and
+   ``run_policies`` over the built-ins; every slot-scan group's output is
+   checked as it comes (each real request served, with a response tag);
+6. each kernel's launches on the main path, its time beside its plain
+   version's and its bound;
+7. ``slot_scan`` against the plain engine over the main path's own
+   groups, the plain engine running in CPU worker processes.
+
+The engine's entry points launch ``bloom_probe`` and ``slot_scan``; the
+policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
+decision of a policy group, so the batch ``policy_vm`` kernel is checked
+and timed at phase 3's shapes and has no launches on the main path.
 
 Exits non-zero on any failed check. The last two lines are the card's
 name and power limit, then ``{"ok": true, "device": {...}}``. Details go
@@ -32,10 +39,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
@@ -49,6 +58,11 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
           "smc_fpga_cycles", "t_resp", "t_issue")
+PATH_KERNELS = ("bloom_probe", "slot_scan")   # launched by the entry points
+N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
+SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
+PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
+MAX_WORKERS = 8           # CPU worker processes of phase 7
 
 
 class CheckFailed(Exception):
@@ -100,38 +114,41 @@ def device_ms(fn, kernel_name, reps=5):
 
 
 class Recorder:
-    """Wraps the engine's kernel routing to keep the largest inputs each
-    kernel saw (the main path's shapes), or to send CUDA tensors to the
-    plain versions instead of the kernels."""
+    """Wraps the engine's kernel routing. ``record()`` keeps the largest
+    ``bloom_probe`` inputs (``bloom_args``) and every ``slot_scan`` group
+    (its study's tag, inputs and host outputs), checking each group's
+    service as it comes; ``plain()`` sends CUDA tensors to the plain
+    versions instead."""
 
-    def __init__(self, ops, ref):
-        self.ops, self.ref = ops, ref
-        self.orig = {"bloom_probe": ops.bloom_probe, "slot_scan": ops.slot_scan,
-                     "policy_vm": ops.policy_vm}
-        self.largest = {}
-
-    def _keep(self, name, size, args):
-        if name not in self.largest or size > self.largest[name][0]:
-            self.largest[name] = (size, args)
+    def __init__(self, ops, ref, nop, big):
+        self.ops, self.ref, self.nop, self.big = ops, ref, nop, big
+        self.orig = {name: getattr(ops, name) for name in ops.KERNELS}
+        self.bloom_args = None
+        self.groups = []
+        self.tag = ""
 
     def record(self):
+        import torch
         o = self.orig
 
         def bp(words, keys, k, m_bits):
-            self._keep("bloom_probe", keys.numel(), (words, keys, k, m_bits))
+            if self.bloom_args is None \
+                    or keys.numel() > self.bloom_args[1].numel():
+                self.bloom_args = (words, keys, k, m_bits)
             return o["bloom_probe"](words, keys, k, m_bits)
 
         def ss(*args):
-            p = args[-1]   # the longest scan dominates the main path's time
-            self._keep("slot_scan", (p.slots, p.batch), args)
-            return o["slot_scan"](*args)
+            out = o["slot_scan"](*args)
+            real = args[0] != self.nop                # every non-NOP request
+            check(torch.equal(out["served"], real.sum(1, dtype=torch.int32)),
+                  f"{self.tag}: a request was not served")
+            check(bool((out["t_resp"][real] < self.big).all()),
+                  f"{self.tag}: a served request has no response tag")
+            self.groups.append({"tag": self.tag, "args": args, "out": {
+                f: v.cpu().numpy() for f, v in out.items()}})
+            return out
 
-        def pv(tables, envm):
-            self._keep("policy_vm", tables.numel() * envm.shape[1],
-                       (tables, envm))
-            return o["policy_vm"](tables, envm)
-
-        self.ops.bloom_probe, self.ops.slot_scan, self.ops.policy_vm = bp, ss, pv
+        self.ops.bloom_probe, self.ops.slot_scan = bp, ss
 
     def plain(self):
         r = self.ref
@@ -236,15 +253,16 @@ def phase_policy(torch, np, ops, ref, dev, smcprog):
         n += 128
     say(f"phase 3 policy_vm: exact on {n} tables (buckets 8 and 16) over "
         f"a {q}-lane env with int32 overflow")
+    return tables, envm
 
 
 def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
-               n_access, dev):
+               dev):
     t0 = time.perf_counter()
     trs = []
     for i in (0, 3, 12, 16):
         tr, _ = traces.polybench_trace(traces.POLYBENCH[i], geo,
-                                       max_accesses=n_access)
+                                       max_accesses=SCAN_ACCESSES)
         trs.append(tr)
     jn = timescale.JETSON_NANO
     trcd = techniques.TRCDReduction(jn)
@@ -286,7 +304,7 @@ def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
     n_req = [t.n for t in trs]
     say(f"phase 4 slot_scan: kernel == plain engine on all 7 fields for "
         f"{len(cases)} cases ({', '.join(times)}) over PolyBench traces of "
-        f"{n_req} requests (max_accesses={n_access}); kernel "
+        f"{n_req} requests (max_accesses={SCAN_ACCESSES}); kernel "
         f"{sum(a for a, _ in times.values()):.2f} s vs plain "
         f"{sum(b for _, b in times.values()):.2f} s; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -294,12 +312,11 @@ def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
 
 
 def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
-               campaign, smcprog, geo, n_kernels, dev):
+               campaign, smcprog, geo, dev):
     jn = timescale.JETSON_NANO
-    big = emu.BIG
     t0 = time.perf_counter()
     trs = []
-    for kern in traces.POLYBENCH[:n_kernels]:
+    for kern in traces.POLYBENCH[:N_POLYBENCH]:
         tr, _ = traces.polybench_trace(kern, geo)
         trs.append(tr)
     trcd = techniques.TRCDReduction(jn, techniques.DeviceModel(geo))
@@ -311,22 +328,24 @@ def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
     ops.reset_launches()
     rec.record()
     t1 = time.perf_counter()
+    rec.tag = "trcd"
     trcd_res = trcd.evaluate_traces(trs, device=dev)
     t2 = time.perf_counter()
     c = campaign.Campaign()
     for i, tr in enumerate(trs):
         for mode in ("ts", "reference"):
             c.add(tr, jn, mode=mode, bloom=bloom, i=i)
+    rec.tag = "ts-reference"
     tsref = c.run(device=dev)
     t3 = time.perf_counter()
     sizes = [64 << 10, 1 << 20, 4 << 20]
-    rc_res = {w: rc.evaluate_batch(sizes, workload=w, device=dev)
-              for w in ("copy", "init")}
+    rc_res = {}
+    for w in ("copy", "init"):
+        rec.tag = f"rowclone-{w}"
+        rc_res[w] = rc.evaluate_batch(sizes, workload=w, device=dev)
     t4 = time.perf_counter()
     builtins = list(smcprog.builtin_programs().values())
-    tables = torch.from_numpy(smcprog.pack_stack(builtins)).to(dev)
-    screen = ops.policy_vm(tables, first_window_env(np, torch, trs[0], jn,
-                                                    smcprog, dev))
+    rec.tag = "policies"
     pol_res = emu.run_policies(trs[0], jn, builtins, device=dev)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
@@ -340,31 +359,26 @@ def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
             check((a[f] == b[f]).all(), f"trace {i}: ts != reference on {f}")
         check(int(a["exec_cycles"]) == r["reduced_cycles"],
               f"trace {i}: campaign and TRCDReduction disagree")
-    records = [(r, trs[r["i"]]) for r in tsref] \
-        + [(r, trs[0]) for r in pol_res]
-    for rec_, tr in records:
-        real = tr.kind != 4                       # every non-NOP request
-        check(int(rec_["served"]) == rec_["n_requests"] == int(real.sum()),
-              "a request was not served")
-        check(bool((rec_["t_resp"][:tr.n][real] < big).all()),
-              "a served request has no response tag")
-        check(np.isfinite(rec_["exec_seconds"]) and rec_["exec_cycles"] > 0,
+    for r in tsref + pol_res:      # the recorder checked every group's service
+        check(int(r["served"]) == r["n_requests"], "a request was not served")
+        check(np.isfinite(r["exec_seconds"]) and r["exec_cycles"] > 0,
               "bad exec time")
     for w, res in rc_res.items():
         for d in res:
             check(d["rowclone"].speedup_vs_cpu > 1.0,
                   f"RowClone {w} at {d['cpu'].n_bytes} B not faster")
-    check(tuple(screen.shape) == (len(builtins), 3, 4), "screen shape")
     n_req = sum(t.n_real for t in trs)
     # reduced tRCD shifts every later decision, so a trace can end a little
-    # later than at nominal tRCD (seen on the card): counted, not a failure
+    # later than at nominal tRCD (seen on the card): phase 7 runs the
+    # tRCD groups of every such trace whole through the plain engine
     speed = [round(r["speedup"], 4) for r in trcd_res]
-    slower = sum(r["reduced_cycles"] > r["base_cycles"] for r in trcd_res)
+    slower = [i for i, r in enumerate(trcd_res)
+              if r["reduced_cycles"] > r["base_cycles"]]
     rcs = {w: [round(d["rowclone"].speedup_vs_cpu, 2) for d in res]
            for w, res in rc_res.items()}
     say(f"phase 5 main path: tRCD over {len(trs)} PolyBench kernels "
         f"({n_req} DRAM requests) {t2 - t1:.2f} s, speedups {speed} "
-        f"({slower} slower at reduced tRCD); ts == "
+        f"(traces {slower} slower at reduced tRCD); ts == "
         f"reference exactly in one batch ({t3 - t2:.2f} s); RowClone "
         f"speedups {rcs} ({t4 - t3:.2f} s); policy sweep over "
         f"{len(builtins)} built-ins {t5 - t4:.2f} s; trace setup "
@@ -377,23 +391,8 @@ def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
         "wall_s": {"trcd": t2 - t1, "ts_reference": t3 - t2,
                    "rowclone": t4 - t3, "policies": t5 - t4,
                    "trace_setup": t_setup},
-        "n_requests": n_req}
-    return counts, detail
-
-
-def first_window_env(np, torch, tr, sys, smcprog, dev):
-    """A scheduling environment for a trace's first queue window: the
-    decision a memory controller faces when its queue first fills."""
-    q = max(sys.window, 2)
-    age = np.cumsum(tr.delta[:q]).astype(np.int64)
-    bank = tr.bank[:q].astype(np.int64)
-    is_write = (tr.kind[:q] == 1).astype(np.int64)
-    z = np.zeros(q, np.int64)
-    rows = [age, age - age.min(), z, bank, tr.row[:q], is_write, z,
-            bank % sys.geometry.n_banks, np.arange(q), z + is_write.sum(),
-            z, z]
-    env = np.stack(rows).astype(np.int32)
-    return torch.from_numpy(env).to(dev)
+        "n_requests": n_req, "slower_at_reduced_trcd": slower}
+    return counts, detail, {emu._bucket(trs[i].n) for i in slower}
 
 
 def bound_ms(nbytes, nops):
@@ -402,12 +401,21 @@ def bound_ms(nbytes, nops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timing(torch, ops, ref, rec, counts):
+def phase_timing(torch, ops, ref, rec, counts, vm_args):
+    """Each kernel's time beside its plain version's and its bound:
+    ``bloom_probe`` and ``slot_scan`` on the main path's largest inputs,
+    the batch ``policy_vm`` (not launched by the entry points) at phase
+    3's bucket-16 inputs."""
+    if rec.bloom_args is None or not rec.groups:
+        raise CheckFailed("the main path recorded no kernel inputs")
+    big = max(rec.groups, key=lambda g: (g["args"][-1].slots,
+                                         g["args"][-1].batch))
+    inputs = {"bloom_probe": rec.bloom_args,
+              "policy_vm": vm_args, "slot_scan": big["args"]}
+    n_vm = sum(g["args"][-1].table_len > 0 for g in rec.groups)
     out = []
     for name in ("bloom_probe", "policy_vm", "slot_scan"):
-        if name not in rec.largest:
-            raise CheckFailed(f"{name} never ran on the main path")
-        args = rec.largest[name][1]
+        args = inputs[name]
         kern = rec.orig[name]
         plain = getattr(ref, {"bloom_probe": "bloom_probe_ref",
                               "policy_vm": "policy_vm_ref",
@@ -429,36 +437,43 @@ def phase_timing(torch, ops, ref, rec, counts):
             err = float((got - want).abs().max())
             ms = cuda_ms(lambda: kern(*args), reps=20)
             extra = {"device_ms": device_ms(lambda: kern(*args),
-                                            "policy_vm_kernel")}
+                                            "policy_vm_kernel"),
+                     "on_path": f"its VM body (policy_vm.cuh) ran inside "
+                                f"slot_scan in {n_vm} main-path groups"}
             plain_ms = cuda_ms(lambda: plain(*args), reps=3)
             P, L1, _ = tables.shape
             Q = envm.shape[1]
             nbytes = tables.numel() * 4 + envm.numel() * 4 + P * 3 * Q * 4
             nops = P * Q * (L1 - 1) * 15
-            shape = f"tables {list(tables.shape)}, env {list(envm.shape)}"
+            shape = (f"phase 3 tables {list(tables.shape)}, env "
+                     f"{list(envm.shape)}")
         else:
             p = args[-1]
-            got = kern(*args)
             ms = cuda_ms(lambda: kern(*args), reps=2)
-            # the plain engine is ~1e3 launches per slot: time it on the
-            # same inputs over a cut slot budget, and the kernel too
+            # the plain engine on the card is ~1e3 launches per slot: time
+            # it on the same inputs over a cut slot budget, and the kernel
+            # too; with no slots the kernel runs only its closing passes
             cut = dataclasses.replace(p, slots=min(p.slots, 200))
             cargs = args[:-1] + (cut,)
             kc, pc = kern(*cargs), plain(*cargs)
             err = max(float((kc[f] - pc[f]).abs().max()) for f in FIELDS)
             plain_ms = cuda_ms(lambda: plain(*cargs), reps=1)
+            closing = args[:-1] + (dataclasses.replace(p, slots=0),)
             extra = {"device_ms": device_ms(lambda: kern(*args),
                                             "slot_scan_kernel", reps=1),
                      "slots": p.slots, "plain_slots": cut.slots,
                      "kernel_ms_at_plain_slots": cuda_ms(
                          lambda: kern(*cargs), reps=3),
+                     "kernel_ms_at_0_slots": cuda_ms(
+                         lambda: kern(*closing), reps=3),
                      "ns_per_slot": ms * 1e6 / p.slots}
             B, N = p.batch, p.n
             nbytes = B * N * (5 * 4 + 2 * 4) + B * 5 * 4 \
                 + (B * N if args[5] is not None else 0) \
                 + (args[6].numel() * 4 if args[6] is not None else 0)
             nops = B * p.slots * (200 + 15 * p.table_len * p.q)
-            shape = f"batch {B} x {N} requests, {p.slots} slots"
+            shape = (f"{big['tag']} group, batch {B} x {N} requests, "
+                     f"{p.slots} slots")
         check(err == 0, f"{name} differs from its plain version on the main "
                         f"path inputs (max abs err {err})")
         bms, bby = bound_ms(nbytes, nops)
@@ -470,12 +485,85 @@ def phase_timing(torch, ops, ref, rec, counts):
     return out
 
 
+def plain_scan_job(arrays, params):
+    """One recorded group through the plain engine on the CPU, in a worker
+    process; returns its seven output fields and the seconds it took."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slot_scan import ScanParams
+    torch.set_num_threads(1)
+    t = {k: None if v is None else torch.from_numpy(v)
+         for k, v in arrays.items()}
+    t0 = time.perf_counter()
+    out = ref.slot_scan_ref(t["kind"], t["bank"], t["row"], t["delta"],
+                            t["dep"], t["weak"], t["tables"], t["costs"],
+                            ScanParams(**params))
+    return {f: v.numpy() for f, v in out.items()}, time.perf_counter() - t0
+
+
+def phase_plain_groups(np, rec, slower_buckets):
+    """``slot_scan`` against the plain engine over the main path's groups.
+
+    The plain engine is launch-bound on the card (~4 ms per slot), so it
+    runs on the CPU, one group per worker process, on the same inputs.
+    Groups of up to ``PLAIN_SLOT_LIMIT`` slots are compared whole with
+    their main-path outputs, as are both tRCD arms of every trace that
+    ended later at reduced tRCD; a longer group is compared over its first
+    ``PLAIN_SLOT_LIMIT`` slots, the kernel relaunched with that budget.
+    The ts / reference groups are left out: their rows repeat the tRCD
+    reduced arm's inputs, and phase 5 holds ts == reference exactly."""
+    names = ("kind", "bank", "row", "delta", "dep", "weak", "tables",
+             "costs")
+    jobs = []
+    for g in rec.groups:
+        if g["tag"] == "ts-reference":
+            continue
+        args, p = g["args"][:-1], g["args"][-1]
+        whole = p.slots <= PLAIN_SLOT_LIMIT \
+            or (g["tag"] == "trcd" and p.n in slower_buckets)
+        got = g["out"]
+        if not whole:
+            p = dataclasses.replace(p, slots=PLAIN_SLOT_LIMIT)
+            got = {f: v.cpu().numpy()
+                   for f, v in rec.orig["slot_scan"](*args, p).items()}
+        arrays = {n: None if a is None else a.cpu().numpy()
+                  for n, a in zip(names, args)}
+        jobs.append((g["tag"], whole, p, arrays, got))
+    # longest first: the plain engine's cost is per slot, x2.5 with a table
+    jobs.sort(key=lambda j: -j[2].slots * (5 if j[2].table_len else 2))
+    workers = min(len(jobs), len(os.sched_getaffinity(0)), MAX_WORKERS)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(plain_scan_job, j[3], dataclasses.asdict(j[2]))
+                for j in jobs]
+        results = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    err = 0
+    for (tag, whole, p, _, got), (want, _) in zip(jobs, results):
+        for f in FIELDS:
+            e = int(np.abs(got[f].astype(np.int64)
+                           - want[f].astype(np.int64)).max())
+            err = max(err, e)
+            check(e == 0, f"slot_scan != plain engine on {f} in a {tag} "
+                          f"group ({p.batch} x {p.n}, {p.slots} slots)")
+    n_whole = sum(j[1] for j in jobs)
+    slots = sum(j[2].slots for j in jobs)
+    cpu_s = sum(s for _, s in results)
+    tags = sorted({j[0] for j in jobs})
+    say(f"phase 7 slot_scan == plain engine on all 7 fields over {len(jobs)} "
+        f"main-path groups ({', '.join(tags)}): {n_whole} whole, "
+        f"{len(jobs) - n_whole} over their first {PLAIN_SLOT_LIMIT} slots; "
+        f"{slots} slots, plain engine {cpu_s:.1f} CPU-s in {workers} "
+        f"processes, {wall:.1f} s")
+    return err, {"groups": len(jobs), "whole": n_whole, "slots": slots,
+                 "plain_cpu_s": cpu_s, "workers": workers, "wall_s": wall,
+                 "plain_ms_per_slot": cpu_s * 1e3 / max(slots, 1)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", type=int, default=12,
-                    help="PolyBench kernels on the main path (default 12)")
-    ap.add_argument("--scan-accesses", type=int, default=1000,
-                    help="max_accesses of the phase-4 traces (default 1000)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
     args = ap.parse_args(argv)
@@ -487,7 +575,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.core import (bloom as bloom_mod, campaign,
+        from repro_torch.core import (bloom as bloom_mod, campaign, dram,
                                       emulator as emu, smcprog, techniques,
                                       timescale, traces)
         from repro_torch.kernels import ops, ref
@@ -498,7 +586,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     geo = timescale.JETSON_NANO.geometry
-    rec = Recorder(ops, ref)
+    rec = Recorder(ops, ref, dram.NOP, emu.BIG)
     report = {"device": torch.cuda.get_device_name(0)}
     try:
         t0 = time.perf_counter()
@@ -510,22 +598,28 @@ def main(argv=None):
             say(f"  ptxas: {ln}")
         report["build"] = info
         phase_bloom(torch, np, ops, ref, dev, bloom_mod, techniques, timescale)
-        phase_policy(torch, np, ops, ref, dev, smcprog)
+        vm_args = phase_policy(torch, np, ops, ref, dev, smcprog)
         report["scan_check_s"] = phase_scan(
-            np, rec, emu, techniques, timescale, traces, smcprog, geo,
-            args.scan_accesses, dev)
-        counts, report["main"] = phase_main(
+            np, rec, emu, techniques, timescale, traces, smcprog, geo, dev)
+        counts, report["main"], slower_buckets = phase_main(
             np, torch, ops, rec, emu, techniques, timescale, traces, campaign,
-            smcprog, geo, args.kernels, dev)
-        for name in ops.KERNELS:
+            smcprog, geo, dev)
+        for name in PATH_KERNELS:
             check(counts[name] > 0, f"{name} was not launched on the main "
                                     f"path")
-        kernels = phase_timing(torch, ops, ref, rec, counts)
+        check(any(g["args"][-1].table_len > 0 for g in rec.groups),
+              "no main-path slot_scan group ran the policy VM")
+        kernels = phase_timing(torch, ops, ref, rec, counts, vm_args)
         say("phase 6 kernels: " + ", ".join(
             f"{k['name']} {k['launches']} launches, {k['ms']:.3f} ms per "
             f"call, device {k['device_ms']} ms (plain {k['plain_ms']:.3f} "
             f"ms, bound {k['bound_ms']:.4f} ms)"
             for k in kernels))
+        err, report["plain_groups"] = phase_plain_groups(np, rec,
+                                                         slower_buckets)
+        scan = next(k for k in kernels if k["name"] == "slot_scan")
+        scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
+        scan["plain_groups"] = report["plain_groups"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -33,6 +33,8 @@ def bloom_probe_cuda(words: torch.Tensor, keys: torch.Tensor, k: int,
         raise ValueError(f"words batch {words.shape[0]} must be 1 or the "
                          f"keys batch {keys.shape[0]}")
     out = torch.empty(keys.shape, dtype=torch.int8, device=dev)
+    if out.numel() == 0:   # nothing to probe: no launch, nothing counted
+        return out
     err = ops.library().bloom_probe_launch(
         ops.ptr(words), int(words.shape[0]), int(words.shape[1]),
         ops.ptr(keys), ops.ptr(out), int(keys.shape[0]), int(keys.shape[1]),

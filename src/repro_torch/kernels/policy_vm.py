@@ -34,6 +34,8 @@ def policy_vm_cuda(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"table length {L} outside 1..{MAX_TABLE}")
     P, Q = int(tables.shape[0]), int(envm.shape[1])
     out = torch.empty((P, 3, Q), dtype=torch.int32, device=dev)
+    if out.numel() == 0:   # no program or no lane: no launch, nothing counted
+        return out
     err = ops.library().policy_vm_launch(
         ops.ptr(tables), P, L, ops.ptr(envm), Q, ops.ptr(out),
         ops.stream_handle(dev))

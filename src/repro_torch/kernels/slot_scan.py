@@ -97,18 +97,18 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                dev)
     _check("costs", costs, (p.batch, 2), torch.int32, dev)
 
-    lib = ops.library()
     t_issue = torch.zeros(shape, dtype=torch.int32, device=dev)
     t_resp = torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev)
-    stats = torch.empty((p.batch, len(STAT_FIELDS)), dtype=torch.int32,
+    stats = torch.zeros((p.batch, len(STAT_FIELDS)), dtype=torch.int32,
                         device=dev)
-    params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
-    ptr = ops.ptr
-    err = lib.slot_scan_launch(
-        params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
-        ptr(weak), ptr(tables), ptr(costs), ptr(t_issue), ptr(t_resp),
-        ptr(stats), ops.stream_handle(dev))
-    ops.check_launch("slot_scan", err)
+    if p.batch > 0:   # an empty batch launches nothing and counts nothing
+        params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
+        ptr = ops.ptr
+        err = ops.library().slot_scan_launch(
+            params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
+            ptr(weak), ptr(tables), ptr(costs), ptr(t_issue), ptr(t_resp),
+            ptr(stats), ops.stream_handle(dev))
+        ops.check_launch("slot_scan", err)
     out = {f: stats[:, i] for i, f in enumerate(STAT_FIELDS)}
     out["t_resp"] = t_resp
     out["t_issue"] = t_issue

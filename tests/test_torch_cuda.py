@@ -95,3 +95,25 @@ def test_slot_scan_kernel_matches_plain(cuda_device, variant):
     want = ref.slot_scan_ref(*args, weak, tables, costs, p)
     for f in want:
         assert torch.equal(got[f], want[f]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ops.KERNELS)
+def test_empty_input_launches_and_counts_nothing(cuda_device, name):
+    ops.reset_launches()
+    if name == "bloom_probe":
+        bf, _, _ = bloom_case(1 << 14, 2, 100)
+        words = words_tensor(bf.bits, cuda_device)[None]
+        keys = torch.empty((1, 0), dtype=torch.int32, device=cuda_device)
+        out = ops.bloom_probe(words, keys, 2, 1 << 14)
+    elif name == "policy_vm":
+        tables, env = vm_inputs(8)
+        out = ops.policy_vm(torch.from_numpy(tables[:0]).to(cuda_device),
+                            torch.from_numpy(env).to(cuda_device))
+    else:
+        e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
+        costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)
+        out = ops.slot_scan(e, e, e, e, e, None, None, costs,
+                            scan_params(0, 64))["t_resp"]
+    assert out.numel() == 0
+    assert ops.launches()[name] == 0

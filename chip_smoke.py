@@ -23,9 +23,28 @@ Phases, one line each:
 6. each kernel's launches on the main path, its time beside its plain
    version's and its bound;
 7. ``slot_scan`` against the plain engine over the main path's own
-   groups, the plain engine running in CPU worker processes.
+   groups, the plain engine running in CPU worker processes;
+8. ``flash_attention`` and ``rowclone_copy`` against their plain
+   versions on the reference kernel tests' grids;
+9. the LM serving path at the full width of ``qwen3-8b`` (random float32
+   weights from a seed, bf16 KV cache): ``ServeEngine.generate_batch``
+   over 4 prompts of 1024 tokens, 16 new tokens each, with the launch
+   counters reset just before it (the prefill launches ``flash_attention``
+   once per layer); the same generation with ``flash_attention`` swapped
+   for its plain version holds the prefill logits, the cache and the
+   greedy tokens;
+10. the KV-cache fork: one prompt's cache forked 4 ways through
+   ``rowclone_copy`` (counters reset just before), bit for bit against the
+   tiled fork, then 16 decode steps from each fork with identical logits;
+11. device time by kernel of one full-width prefill, one decode step and
+   one 4-way fork, beside their wall time (the device's busy share);
+12. each LM kernel's time at the serving path's shapes beside its plain
+   version's, its bound and the PyTorch call that computes the same
+   function (``scaled_dot_product_attention``, ``clone``), which the port
+   itself never calls; its device time per launch comes from phase 11.
 
-The engine's entry points launch ``bloom_probe`` and ``slot_scan``; the
+The engine's entry points launch ``bloom_probe`` and ``slot_scan``, the
+serving engine ``flash_attention`` and ``rowclone_copy``; the
 policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
@@ -53,6 +72,8 @@ REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe.py:21",
     "policy_vm": "src/repro/kernels/policy_vm.py:31",
     "slot_scan": "src/repro/core/emulator.py:531",
+    "flash_attention": "src/repro/kernels/flash_attention.py:21",
+    "rowclone_copy": "src/repro/kernels/rowclone_copy.py:18",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -63,6 +84,21 @@ N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
 SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
 PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
 MAX_WORKERS = 8           # CPU worker processes of phase 7
+LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
+LM_SEED = 0
+LM_BATCH, LM_PROMPT, LM_NEW, FORK_N = 4, 1024, 16, 4
+FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
+              (1, 128, 4, 1, 256)]     # tests/test_kernels.py
+ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192)]
+# kernel vs plain on one attention call: the tolerances of
+# tests/test_kernels.py (the kernel's online softmax sums in another order)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the whole prefill, kernel route vs plain route: 36 layers compound each
+# layer's ~1e-6 relative attention difference through float32 matmuls;
+# logits may differ by 1e-3 of their largest magnitude, each bf16 cache
+# value by one bf16 ulp (2^-7 relative) plus 1e-4 of the leaf's largest
+LOGIT_TOL = 1e-3
+CACHE_RTOL, CACHE_ATOL = 2.0 ** -7, 1e-4
 
 
 class CheckFailed(Exception):
@@ -98,19 +134,10 @@ def device_ms(fn, kernel_name, reps=5):
     ``kernel_name``, from the profiler's CUPTI trace; None when the trace
     shows no such kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us > 0 else None
+    rows, _ = profile_rows(torch, lambda: [fn() for _ in range(reps)])
+    total = sum(ms for key, ms, _ in rows if kernel_name in key)
+    return total / reps if total > 0 else None
 
 
 class Recorder:
@@ -562,6 +589,408 @@ def phase_plain_groups(np, rec, slower_buckets):
                  "plain_ms_per_slot": cpu_s * 1e3 / max(slots, 1)}
 
 
+def close(got, want, atol, rtol):
+    """Elementwise ``|got - want| <= atol + rtol * |want|`` (numpy's
+    allclose) on float32 copies; returns (ok, max abs err)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return bool((diff <= atol + rtol * w.abs()).all()), float(diff.max())
+
+
+def phase_lm_kernels(torch, ops, ref, dev):
+    """``flash_attention`` on the reference flash test grid (float32 and
+    bf16, causal and not) and ``rowclone_copy`` on the reference copy
+    grid (float32, bf16, int8; fresh, into strided rows, from an
+    unaligned base) against their plain versions on the card."""
+    errs = {}
+    n = 0
+    for B, S, H, KV, hd in FLASH_GRID:
+        for dt in ("float32", "bfloat16"):
+            for causal in (True, False):
+                g = torch.Generator(device=dev).manual_seed(B * S + H)
+                q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+                    getattr(torch, dt)) for shape in
+                    ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+                got = ops.flash_attention(q, k, v, causal=causal)
+                flat = [t.permute(0, 2, 1, 3).reshape(-1, S, hd)
+                        for t in (q, k, v)]
+                want = (ref.flash_attention_ref(*flat, causal)
+                        .reshape(B, H, S, hd).permute(0, 2, 1, 3))
+                tol = FLASH_TOL[dt]
+                ok, err = close(got, want, tol, tol)
+                check(ok and got.dtype == q.dtype,
+                      f"flash_attention != plain at {(B, S, H, KV, hd)} {dt} "
+                      f"causal={causal} (max abs err {err})")
+                errs[dt] = max(errs.get(dt, 0.0), err)
+                n += 1
+    n_copy = 0
+    for shape in ROWCLONE_SHAPES:
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            x = torch.arange(shape[0] * shape[1], device=dev).reshape(
+                shape).to(dt)
+            check(torch.equal(ops.rowclone_copy(x), ref.rowclone_copy_ref(x)),
+                  f"rowclone_copy != plain at {shape} {dt}")
+            wide = torch.zeros((shape[0], 3, shape[1]), dtype=dt, device=dev)
+            want = torch.zeros_like(wide)
+            ops.rowclone_copy(x, out=wide[:, 1])
+            ref.rowclone_copy_ref(x, out=want[:, 1])
+            check(torch.equal(wide, want),
+                  f"rowclone_copy into strided rows != plain at {shape} {dt}")
+            odd = torch.arange(x.numel() + 1, device=dev).to(dt)[1:].view(
+                shape)
+            check(torch.equal(ops.rowclone_copy(odd), odd),
+                  f"rowclone_copy from an unaligned base at {shape} {dt}")
+            n_copy += 3
+    torch.cuda.synchronize()
+    say(f"phase 8 LM kernels: flash_attention == plain on {n} cases "
+        f"(max abs err fp32 {errs['float32']:.3g} <= {FLASH_TOL['float32']}, "
+        f"bf16 {errs['bfloat16']:.3g} <= {FLASH_TOL['bfloat16']}); "
+        f"rowclone_copy exact on {n_copy} copies")
+    return errs
+
+
+class LMRecorder:
+    """Wraps a model's ``prefill_fn`` / ``decode_fn`` to keep their logits
+    and the prefill cache, and ``ops.flash_attention_bhsd`` to keep the
+    first call's inputs; ``plain_flash`` sends that call to the plain
+    version instead of the kernel."""
+
+    def __init__(self, model, ops, ref):
+        self.model, self.ops, self.ref = model, ops, ref
+        self.orig = (model.prefill_fn, model.decode_fn,
+                     ops.flash_attention_bhsd)
+        self.flash_args = None
+        self.run = None
+
+    def start(self, plain_flash=False):
+        prefill, decode, flash = self.orig
+        run = self.run = {"prefill": None, "steps": [], "prefill_s": 0.0}
+
+        def rec_flash(q, k, v, causal=True):
+            if self.flash_args is None:
+                self.flash_args = (q, k, v, causal)
+            return (self.ref.flash_attention_ref if plain_flash else flash)(
+                q, k, v, causal)
+
+        def rec_prefill(params, batch):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            run["prefill_s"] += time.perf_counter() - t0
+            run["prefill"] = (logits, cache)
+            return logits, cache
+
+        def rec_decode(params, cache, token, pos):
+            logits, cache = decode(params, cache, token, pos)
+            run["steps"].append(logits)
+            return logits, cache
+
+        self.model.prefill_fn = rec_prefill
+        self.model.decode_fn = rec_decode
+        self.ops.flash_attention_bhsd = rec_flash
+
+    def stop(self):
+        (self.model.prefill_fn, self.model.decode_fn,
+         self.ops.flash_attention_bhsd) = self.orig
+        return self.run
+
+
+def margins(torch, logits, vocab):
+    """Top-1 minus top-2 logit per row, ``[B]``."""
+    top = torch.topk(logits[:, -1, :vocab].float(), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def phase_serve(torch, np, ops, ref, dev, lm):
+    """The serving path at full width; returns the flash launches, the
+    model, its parameters, the prompts and the recorder."""
+    configs, model_zoo, engine_mod = lm
+    cfg = configs.get_config(LM_ARCH)
+    s_max = LM_PROMPT + LM_NEW
+    model = model_zoo.build(cfg, s_max=s_max)
+    t0 = time.perf_counter()
+    params = model.init(LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = engine_mod.ServeEngine(model, params, s_max=s_max)
+    prompts = np.random.RandomState(LM_SEED).randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    rec = LMRecorder(model, ops, ref)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec.start()
+    t1 = time.perf_counter()
+    tokens = engine.generate_batch(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t1
+    counts = ops.launches()
+    kern = rec.stop()
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"the prefill launched flash_attention {counts['flash_attention']} "
+          f"times, not once per layer ({cfg.n_layers})")
+    check(tokens.shape == (LM_BATCH, LM_NEW)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"generated tokens out of range or of shape {tokens.shape}")
+
+    rec.start(plain_flash=True)
+    tokens_plain = engine.generate_batch(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    plain = rec.stop()
+
+    (lk, ck), (lp, cp) = kern["prefill"], plain["prefill"]
+    check(bool(torch.isfinite(lk).all()), "non-finite prefill logits")
+    scale = float(lp.abs().max())
+    logit_err = float((lk - lp).abs().max())
+    check(logit_err <= LOGIT_TOL * scale,
+          f"prefill logits: kernel route vs plain differ by {logit_err} "
+          f"(> {LOGIT_TOL} x {scale})")
+    cache_err = 0.0
+    for pos in ck:
+        for name in ck[pos]:
+            a, b = ck[pos][name], cp[pos][name]
+            check(a.dtype == torch.bfloat16 and a.shape == (
+                cfg.n_layers, LM_BATCH, LM_PROMPT, cfg.n_kv_heads,
+                cfg.resolved_head_dim), f"cache {pos}.{name}: {a.dtype} "
+                                        f"{tuple(a.shape)}")
+            ok, err = close(a, b, CACHE_ATOL * float(b.abs().max()),
+                            CACHE_RTOL)
+            check(ok, f"prefill cache {pos}.{name}: kernel route vs plain "
+                      f"differ by {err}")
+            cache_err = max(cache_err, err)
+    # greedy tokens agree wherever the plain route's top-2 margin exceeds
+    # the logit tolerance; after a legitimate split a row is not compared
+    steps = [lp] + plain["steps"]
+    marg = torch.stack([margins(torch, s, cfg.vocab_size) for s in steps],
+                       1).cpu().numpy()
+    compared = split = 0
+    for b in range(LM_BATCH):
+        for t in range(LM_NEW):
+            if tokens[b, t] == tokens_plain[b, t]:
+                compared += 1
+                continue
+            check(marg[b, t] <= LOGIT_TOL * scale,
+                  f"row {b} step {t}: greedy tokens differ at a top-2 "
+                  f"margin {marg[b, t]} above the tolerance")
+            split += 1
+            break
+    n_tok = LM_BATCH * LM_NEW
+    decode_s = t_gen - kern["prefill_s"]
+    detail = {"arch": LM_ARCH, "n_params": model.n_params(),
+              "init_s": t_init, "generate_s": t_gen,
+              "prefill_s": kern["prefill_s"],
+              "prefill_plain_flash_s": plain["prefill_s"],
+              "decode_s": decode_s,
+              "decode_ms_per_step": decode_s * 1e3 / (LM_NEW - 1),
+              "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / kern["prefill_s"],
+              "logit_err": logit_err, "logit_scale": scale,
+              "cache_err": cache_err, "tokens_compared": compared,
+              "rows_split_at_small_margin": split,
+              "min_margin": float(marg.min()),
+              "tokens": tokens.tolist(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say(f"phase 9 serve {cfg.name} full width ({model.n_params() / 1e9:.2f} B "
+        f"params fp32, init {t_init:.2f} s): {LM_BATCH} x {LM_PROMPT} prompt "
+        f"tokens, {LM_NEW} new, {t_gen:.2f} s (prefill "
+        f"{kern['prefill_s']:.2f} s, decode {detail['decode_ms_per_step']:.1f} "
+        f"ms per step); flash_attention launches {counts['flash_attention']}; "
+        f"kernel vs plain route: logits max err {logit_err:.3g} (scale "
+        f"{scale:.3g}), cache max err {cache_err:.3g}, {compared} of "
+        f"{n_tok} greedy tokens equal, {split} rows split at margins <= "
+        f"tolerance")
+    return counts["flash_attention"], detail, model, params, prompts, rec
+
+
+def profile_rows(torch, fn):
+    """Device time by kernel name (CUPTI) of one call of ``fn``, largest
+    first, and the call's wall milliseconds (synchronized)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((ev.key, us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows, wall
+
+
+def phase_profile(torch, model, params, prompts, fork, fork_fn):
+    """Where a full-width prefill's, a decode step's and a fork's time
+    goes: device time by kernel and the device's busy share of the wall
+    time."""
+    out = {}
+    with torch.no_grad():
+        runs = {"prefill": lambda: model.prefill_fn(params,
+                                                    {"tokens": prompts}),
+                "decode": lambda: model.decode_fn(
+                    params, fork, torch.zeros((FORK_N, 1), dtype=torch.long,
+                                              device=params["embed"].device),
+                    LM_PROMPT + LM_NEW - 1),
+                "fork": fork_fn}
+        for name, fn in runs.items():
+            fn()
+            rows, wall = profile_rows(torch, fn)
+            busy = sum(ms for _, ms, _ in rows)
+            out[name] = {"wall_ms": wall, "device_ms": busy,
+                         "busy_share": busy / wall, "kernels": rows}
+            say(f"phase 11 {name} profile: wall {wall:.2f} ms, device busy "
+                f"{busy:.2f} ms ({100 * busy / wall:.1f}%): " + ", ".join(
+                    f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in rows[:5]))
+    return out
+
+
+def per_launch_ms(profile, kernel_name):
+    """Device ms per launch of the kernels named ``kernel_name`` in a
+    phase-11 profile; None when the trace shows none."""
+    hits = [(ms, n) for key, ms, n in profile["kernels"] if kernel_name in key]
+    n = sum(c for _, c in hits)
+    return sum(ms for ms, _ in hits) / n if n else None
+
+
+def phase_fork(torch, ops, dev, lm, model, params, prompts):
+    """One prompt's cache forked FORK_N ways through ``rowclone_copy``,
+    bit for bit against the tiled fork, then LM_NEW decode steps from
+    each fork with identical logits."""
+    _, _, engine_mod = lm
+    cfg = model.cfg
+    s_max = LM_PROMPT + LM_NEW
+    engine = engine_mod.ServeEngine(model, params, s_max=s_max)
+    with torch.no_grad():
+        logits, cache = model.prefill_fn(params, {"tokens": prompts[:1]})
+    cache = engine_mod.pad_cache_to(cache, s_max)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fork = engine.fork_cache(cache, FORK_N)
+    torch.cuda.synchronize()
+    t_fork = time.perf_counter() - t0
+    counts = ops.launches()
+    n_leaves = sum(len(v) for v in cache.values())
+    check(counts["rowclone_copy"] == n_leaves * FORK_N,
+          f"the fork launched rowclone_copy {counts['rowclone_copy']} times, "
+          f"not {n_leaves} x {FORK_N}")
+    t1 = time.perf_counter()
+    tiled = engine.fork_cache(cache, FORK_N, use_kernel=False)
+    torch.cuda.synchronize()
+    t_tile = time.perf_counter() - t1
+    for pos in fork:
+        for name in fork[pos]:
+            a, b = fork[pos][name], tiled[pos][name]
+            check(a.shape == b.shape and torch.equal(
+                a.view(torch.int16), b.view(torch.int16)),
+                f"fork {pos}.{name}: kernel copy != tiled copy")
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None].repeat(FORK_N, 1)
+    with torch.no_grad():
+        for t in range(LM_NEW):
+            la, fork = model.decode_fn(params, fork, tok, LM_PROMPT + t)
+            lb, tiled = model.decode_fn(params, tiled, tok, LM_PROMPT + t)
+            check(torch.equal(la, lb), f"decode step {t}: logits from the "
+                                       f"two forks differ")
+            check(bool(torch.isfinite(la).all()), "non-finite decode logits")
+            tok = la[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    leaf = cache["p0"]["k"]
+    say(f"phase 10 fork: {FORK_N}-way fork of a {LM_PROMPT}-token cache "
+        f"({n_leaves} leaves of {tuple(leaf.shape)} {leaf.dtype}) through "
+        f"rowclone_copy, {counts['rowclone_copy']} launches, "
+        f"{t_fork * 1e3:.2f} ms (tiled {t_tile * 1e3:.2f} ms), bit for bit "
+        f"equal to the tiled fork; {LM_NEW} decode steps from each fork "
+        f"with identical logits")
+    return counts["rowclone_copy"], {"fork_ms": t_fork * 1e3,
+                                     "tiled_ms": t_tile * 1e3,
+                                     "leaf_shape": list(leaf.shape)}, cache, \
+        fork
+
+
+def sdpa_call(torch, q, k, v, causal):
+    """``scaled_dot_product_attention`` on the kernel's flattened inputs,
+    query head i over kv head i // G (its ``enable_gqa`` grouping)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                          is_causal=causal,
+                                          enable_gqa=True)[0]
+
+
+def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
+                    rowclone_launches, profiles):
+    """Each LM kernel's time at the serving path's shapes: flash on the
+    first prefill layer's inputs, rowclone on one fork copy of a cache
+    leaf into its slot; device ms per launch from the phase-11 profiles
+    of the path's own calls."""
+    out = []
+    q, k, v, causal = rec.flash_args
+    kern = rec.orig[2]
+    got, want = kern(q, k, v, causal), ref.flash_attention_ref(q, k, v, causal)
+    ok, err = close(got, want, FLASH_TOL["float32"], FLASH_TOL["float32"])
+    check(ok, f"flash_attention != plain on the prefill's inputs "
+              f"(max abs err {err})")
+    BH, S, hd = q.shape
+    lib = sdpa_call(torch, q, k, v, causal)
+    lib_err = float((lib - want).abs().max())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + (k.numel() + v.numel()) * k.element_size()
+    nops = (2 if causal else 4) * BH * S * k.shape[1] * hd
+    bms, bby = bound_ms(nbytes, nops)
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": flash_launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: kern(q, k, v, causal),
+                                          reps=10),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+                            reps=3),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: sdpa_call(torch, q, k, v, causal),
+                              reps=10),
+        "device_ms": per_launch_ms(profiles["prefill"],
+                                   "flash_attention_kernel"),
+        "library_max_abs_err": lib_err,
+        "shape": f"q {list(q.shape)}, k/v {list(k.shape)} {q.dtype}, "
+                 f"causal={causal} (one prefill layer)",
+        "flops": nops})
+    x = cache["p0"]["k"]
+    flat = x.reshape(x.shape[0], -1)
+    wide = torch.empty((x.shape[0], FORK_N, flat.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    slot = wide[:, 1]
+    copy = rec.ops.rowclone_copy
+    copy(flat, out=slot)
+    err = 0.0 if torch.equal(slot.view(torch.int16),
+                             flat.view(torch.int16)) else float("inf")
+    check(err == 0, "rowclone_copy != its input on a fork leaf")
+    nbytes = 2 * flat.numel() * flat.element_size()
+    bms, bby = bound_ms(nbytes, 0)
+    out.append({
+        "name": "rowclone_copy", "route": "cuda",
+        "source": SOURCES["rowclone_copy"],
+        "replaces": REPLACES["rowclone_copy"], "launches": rowclone_launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: copy(flat, out=slot), reps=20),
+        "plain_ms": cuda_ms(lambda: ref.rowclone_copy_ref(flat, out=slot),
+                            reps=20),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: flat.clone(), reps=20),
+        "device_ms": per_launch_ms(profiles["fork"],
+                                   "rowclone_copy_kernel"),
+        "shape": f"{list(flat.shape)} {flat.dtype} into slot 1 of "
+                 f"{list(wide.shape)} (one fork copy of a cache leaf)",
+        "bytes": nbytes})
+    say("phase 12 LM kernels: " + ", ".join(
+        f"{k['name']} {k['launches']} launches, {k['ms']:.4f} ms per call, "
+        f"device {k['device_ms']} ms (plain {k['plain_ms']:.4f} ms, library "
+        f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+        f"{k['bound_by']})" for k in out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -578,7 +1007,10 @@ def main(argv=None):
         from repro_torch.core import (bloom as bloom_mod, campaign, dram,
                                       emulator as emu, smcprog, techniques,
                                       timescale, traces)
+        from repro_torch import configs
         from repro_torch.kernels import ops, ref
+        from repro_torch.models import model_zoo
+        from repro_torch.serve import engine as engine_mod
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -620,6 +1052,19 @@ def main(argv=None):
         scan = next(k for k in kernels if k["name"] == "slot_scan")
         scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
         scan["plain_groups"] = report["plain_groups"]
+
+        lm = (configs, model_zoo, engine_mod)
+        report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)
+        flash_n, report["serve"], model, params, prompts, lm_rec = \
+            phase_serve(torch, np, ops, ref, dev, lm)
+        rc_n, report["fork"], cache1, fork = phase_fork(
+            torch, ops, dev, lm, model, params, prompts)
+        fork_engine = engine_mod.ServeEngine(model, params, model.s_max)
+        report["profile"] = phase_profile(
+            torch, model, params, prompts, fork,
+            lambda: fork_engine.fork_cache(cache1, FORK_N))
+        kernels += phase_lm_timing(torch, ops, ref, lm_rec, cache1, flash_n,
+                                   rc_n, report["profile"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

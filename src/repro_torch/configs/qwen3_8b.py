@@ -1,0 +1,10 @@
+"""qwen3-8b [dense] — qk_norm, GQA kv=8. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12288, vocab_size=151936, head_dim=128,
+    act="swiglu", qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B",
+)

@@ -43,6 +43,7 @@ from repro_torch.core.dram import NOP
 from repro_torch.core.smcprog import wrap32
 from repro_torch.core.state import BIG, EmulatorState
 from repro_torch.core.timescale import SystemConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import FP
 from repro_torch.kernels.slot_scan import ScanParams
@@ -238,19 +239,6 @@ def _normalize_policies(policies, policy_costs, sys: SystemConfig, n: int):
                 f"per-trace policy_costs ({len(costs)}) must match "
                 f"len(traces) ({n})")
     return policies, costs
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA. Asking for CUDA without a CUDA device raises:
-    the engine never moves to the CPU unasked."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch engine")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _scan_params(sys: SystemConfig, mode: str, batch: int, n: int,

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.dram import Geometry, Timing
@@ -18,9 +19,11 @@ from repro_torch.core.faults import FaultModel
 from repro_torch.core.smcprog import PolicyProgram
 from repro_torch.core.state import EmulatorState
 from repro_torch.core.timescale import SystemConfig
+from repro_torch.device import resolve_device
 
 __all__ = ["system_config_from_dict", "trace_from_arrays",
-           "policy_from_fields", "bloom_from_words", "EmulatorState"]
+           "policy_from_fields", "bloom_from_words", "EmulatorState",
+           "lm_params_from_numpy", "cache_from_numpy", "tensor_from_numpy"]
 
 
 def policy_from_fields(table, score_reg: int, boost_reg: int = -1,
@@ -63,3 +66,32 @@ def bloom_from_words(bits, m_bits: int, k: int) -> BloomFilter:
     if words.shape != (m_bits // 32,):
         raise ValueError(f"{words.shape[0]} words do not hold {m_bits} bits")
     return BloomFilter(bits=words, m_bits=int(m_bits), k=int(k))
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A numpy array (``bfloat16`` from ``ml_dtypes`` included, as
+    ``np.asarray`` of a JAX array gives it) -> a tensor on ``device``
+    (the CPU unless asked, as ``torch.from_numpy``)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(tree, device):
+    """The reference's LM parameter tree or decode cache (nested dicts,
+    numpy leaves with the stacked ``[G, ...]`` layer axis; the cache is
+    ``{"p<i>": {"k", "v"}}``, each ``[G, B, S, KV, hd]``) -> the port's,
+    leaf for leaf, dtype kept (bf16 stays bf16). ``device`` is resolved
+    as the entry points resolve it: ``None`` means CUDA."""
+    dev = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        return tensor_from_numpy(t, dev)
+    return convert(tree)
+
+
+cache_from_numpy = lm_params_from_numpy

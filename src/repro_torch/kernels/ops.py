@@ -4,11 +4,13 @@ Each public function here routes by the device of the tensors it is
 given: a CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`, a CUDA tensor to the hand-written CUDA
 kernel (``csrc/``), and anything else raises. There is no fallback from
-the kernel to the plain version.
+the kernel to the plain version. The reference's shape routing (a long
+or ragged sequence takes the chunked plain attention) lives in
+``models.attention.attn_apply``, where the attention route is chosen.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``. The
-three sources compile in parallel; the library is keyed by the sources'
+sources compile in parallel; the library is keyed by the sources'
 content, under ``build/repro_torch`` at the repository root. Each CUDA
 wrapper adds one to its launch counter (:func:`launches`) right after
 its kernel launched, and nowhere else.
@@ -29,17 +31,22 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.bloom_probe import bloom_probe_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import policy_vm_cuda
+from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import ScanParams, slot_scan_cuda
 
-KERNELS = ("bloom_probe", "policy_vm", "slot_scan")
+KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "flash_attention",
+           "rowclone_copy")
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu")
+_SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu",
+            "flash_attention.cu", "rowclone_copy.cu")
 _HEADERS = ("common.cuh", "policy_vm.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+MAX_KV_KERNEL = 8192   # attn_apply sends longer key sequences to plain attention
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -144,8 +151,13 @@ def library() -> ctypes.CDLL:
             lib.policy_vm_launch.argtypes = [vp, i, i, vp, i, vp, vp]
             lib.slot_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 12
             lib.slot_scan_num_params.argtypes = []
+            lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 7 + [
+                ctypes.c_float, vp]
+            ll = ctypes.c_longlong
+            lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
             for fn in (lib.bloom_probe_launch, lib.policy_vm_launch,
-                       lib.slot_scan_launch, lib.slot_scan_num_params):
+                       lib.slot_scan_launch, lib.slot_scan_num_params,
+                       lib.flash_attention_launch, lib.rowclone_copy_launch):
                 fn.restype = i
             n = lib.slot_scan_num_params()
             if n != len(ScanParams.__dataclass_fields__):
@@ -185,3 +197,34 @@ def slot_scan(kind, bank, row, delta, dep, weak, tables, costs,
         return ref.slot_scan_ref(kind, bank, row, delta, dep, weak, tables,
                                  costs, p)
     return slot_scan_cuda(kind, bank, row, delta, dep, weak, tables, costs, p)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q ``[B, S, H, hd]``, k / v ``[B, S, KV, hd]`` -> ``[B, S, H, hd]``.
+
+    Groups the q heads by kv head (``B * KV * G`` rows, as the reference
+    wrapper does) for :func:`flash_attention_bhsd`."""
+    B, Sq, H, hd = q.shape
+    KV, Sk = k.shape[2], k.shape[1]
+    qr = q.permute(0, 2, 1, 3).reshape(B * H, Sq, hd).contiguous()
+    kr = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd).contiguous()
+    vr = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd).contiguous()
+    o = flash_attention_bhsd(qr, kr, vr, causal)
+    return o.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """q ``[BHq, Sq, hd]``, k / v ``[BHkv, Sk, hd]`` -> ``[BHq, Sq, hd]``."""
+    if _route("flash_attention", q) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    return flash_attention_cuda(q, k, v, causal)
+
+
+def rowclone_copy(x: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A copy of ``x`` ``[R, C]`` (any dtype), into ``out`` when given."""
+    if _route("rowclone_copy", x) == "cpu":
+        return ref.rowclone_copy_ref(x, out)
+    return rowclone_copy_cuda(x, out)

@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 They repeat the kernels' arithmetic with tensor ops, run on any device,
-and are what the emulator uses for CPU tensors. :func:`slot_scan_ref` is
+and are what the emulator and the LM use for CPU tensors. :func:`slot_scan_ref` is
 a batched loop over slots that mirrors the reference slot body
 (``repro.core.emulator._make_slot_body``) line for line, over a leading
 batch axis of trace rows, carrying an
@@ -31,6 +31,34 @@ def bloom_probe_ref(words: torch.Tensor, keys: torch.Tensor, k: int,
 def policy_vm_ref(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
     """tables ``[P, L + 1, 4]`` x env ``[N_LOADS, Q]`` -> ``[P, 3, Q]``."""
     return smcprog.evaluate_table(tables, envm)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q ``[BHq, Sq, hd]``, k / v ``[BHkv, Sk, hd]`` (GQA by ratio: q row i
+    reads kv row ``i // G``) -> ``[BHq, Sq, hd]`` in q's dtype. Float32
+    softmax; the causal mask is the oracle's ``tril(k=Sk-Sq)``."""
+    BH, Sq, hd = q.shape
+    BK, Sk, _ = k.shape
+    G = BH // BK
+    qf = q.float() * (hd ** -0.5)
+    kf = k.float().repeat_interleave(G, dim=0)
+    vf = v.float().repeat_interleave(G, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf)
+    if causal:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril(Sk - Sq)
+        s = torch.where(mask[None], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
+
+
+def rowclone_copy_ref(x: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A copy of ``x`` ``[R, C]``, into ``out`` (any row stride) when given."""
+    if out is None:
+        return x.clone()
+    return out.copy_(x)
 
 
 def _scatter_(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:

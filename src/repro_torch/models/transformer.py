@@ -1,0 +1,217 @@
+"""Decoder stack over layer groups with a block pattern per group.
+
+A *pattern* of period P describes each layer position's (mixer, mlp)
+pair; parameters are stacked over ``n_layers // P`` groups, and the
+forward passes loop over the groups (the reference scans them with
+``lax.scan``). The port builds the dense pattern ``("attn", "dense")``;
+mamba, rwkv and MoE positions raise ``NotImplementedError`` (ROADMAP
+Queue A 12).
+
+Parameters and caches are nested dicts of tensors with the reference's
+structure and its stacked ``[G, ...]`` axis, so the reference's trees
+carry over leaf for leaf (``repro_torch.interop``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.pdefs import ParamDef, stack_defs
+
+
+# ---------------- pattern ----------------
+
+def layer_pattern(cfg) -> Tuple[Tuple[str, str], ...]:
+    moe_every = cfg.moe.every if cfg.moe else 1
+    P = 1
+    for k in (cfg.attn_every, moe_every):
+        P = P * k // math.gcd(P, k)
+    out = []
+    for p in range(P):
+        if cfg.attn_free:
+            mixer = "rwkv"
+        elif cfg.ssm is not None and cfg.attn_every > 1:
+            mixer = "attn" if p % cfg.attn_every == cfg.attn_every // 2 else "mamba"
+        else:
+            mixer = "attn"
+        if cfg.attn_free:
+            mlp = "rwkv_cm"
+        elif cfg.moe and p % moe_every == moe_every - 1:
+            mlp = "moe"
+        else:
+            mlp = "dense"
+        out.append((mixer, mlp))
+    if cfg.n_layers % P:
+        raise ValueError(f"{cfg.n_layers} layers do not divide into groups "
+                         f"of {P}")
+    return tuple(out)
+
+
+def n_groups(cfg) -> int:
+    return cfg.n_layers // len(layer_pattern(cfg))
+
+
+_NOT_PORTED = {
+    "mamba": "mamba mixers are not ported yet (ROADMAP Queue A 12: mamba hybrid)",
+    "rwkv": "rwkv time mix is not ported yet (ROADMAP Queue A 12: rwkv)",
+    "rwkv_cm": "rwkv channel mix is not ported yet (ROADMAP Queue A 12: rwkv)",
+    "moe": "MoE blocks are not ported yet (ROADMAP Queue A 12: MoE)",
+}
+
+
+def _check_ported(pat) -> None:
+    for mx, ml in pat:
+        for part in (mx, ml):
+            if part in _NOT_PORTED:
+                raise NotImplementedError(_NOT_PORTED[part])
+
+
+# ---------------- parameter definitions ----------------
+
+def _pos_defs(cfg, mixer, mlp):
+    _check_ported(((mixer, mlp),))
+    d = cfg.d_model
+    return {"ln1": ParamDef((d,), ("hidden",), init="zeros"),
+            "ln2": ParamDef((d,), ("hidden",), init="zeros"),
+            "mixer": attn.attn_defs(cfg),
+            "mlp": L.mlp_defs(d, cfg.d_ff, cfg.act)}
+
+
+def lm_defs(cfg, std=0.02):
+    pat = layer_pattern(cfg)
+    G = n_groups(cfg)
+    blocks = {f"p{i}": stack_defs(_pos_defs(cfg, mx, ml), G)
+              for i, (mx, ml) in enumerate(pat)}
+    defs = {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "hidden"), std=std),
+        "final_norm": ParamDef((cfg.d_model,), ("hidden",), init="zeros"),
+        "blocks": blocks,
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab), ("hidden", "vocab"), std=std)
+    return defs
+
+
+def group_params(blocks, g: int):
+    """Group ``g``'s slice of the stacked ``[G, ...]`` parameters."""
+    if isinstance(blocks, dict):
+        return {k: group_params(v, g) for k, v in blocks.items()}
+    return blocks[g]
+
+
+# ---------------- caches ----------------
+
+def cache_specs(cfg, batch: int, s_max: int, dtype=torch.bfloat16):
+    """``{"p<i>": {"k": (shape, dtype), "v": ...}}`` per attention
+    position, each ``[G, B, S, KV, hd]``."""
+    pat = layer_pattern(cfg)
+    _check_ported(pat)
+    G = n_groups(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (G, batch, s_max, KV, hd)
+    return {f"p{i}": {"k": (shape, dtype), "v": (shape, dtype)}
+            for i in range(len(pat))}
+
+
+def init_cache(cfg, batch, s_max, dtype=torch.bfloat16, device=None):
+    return {pos: {name: torch.zeros(shape, dtype=dt, device=device)
+                  for name, (shape, dt) in leaves.items()}
+            for pos, leaves in cache_specs(cfg, batch, s_max, dtype).items()}
+
+
+# ---------------- forward ----------------
+
+def _rope_sc(cfg, positions):
+    if cfg.rope_theta <= 0:
+        return None
+    return L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash):
+    """Apply one pattern group over a full sequence. Returns (x, kv) with
+    each attention position's (k, v) in the compute dtype."""
+    kv = {}
+    for i, (mx, ml) in enumerate(pat):
+        p = params_g[f"p{i}"]
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, kv[f"p{i}"] = attn.attn_apply(p["mixer"], cfg, h, rope_sc,
+                                         causal=True, use_flash=use_flash)
+        x = x + y
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h, cfg.act)
+    return x, kv
+
+
+def _block_decode(cfg, pat, params_g, x, rope_sc, cache_g, pos: int):
+    """One pattern group, single-token decode; updates ``cache_g`` (this
+    group's ``[B, S, KV, hd]`` slices) in place. Returns x."""
+    for i, (mx, ml) in enumerate(pat):
+        p = params_g[f"p{i}"]
+        c = cache_g[f"p{i}"]
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = attn.attn_decode(p["mixer"], cfg, h, rope_sc, c["k"], c["v"],
+                                pos)
+        x = x + y
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h, cfg.act)
+    return x
+
+
+def forward_train(params, cfg, x, positions, use_flash=True):
+    """x ``[B, S, d]`` embedded input -> final-normed hidden states.
+    Forward only: training (``loss_fn``, remat) is ROADMAP Queue A 12."""
+    pat = layer_pattern(cfg)
+    rope_sc = _rope_sc(cfg, positions)
+    for g in range(n_groups(cfg)):
+        x, _ = _block_seq(cfg, pat, group_params(params["blocks"], g), x,
+                          rope_sc, use_flash)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward_prefill(params, cfg, x, positions, s_max,
+                    cache_dtype=torch.bfloat16, use_flash=True):
+    """Returns (hidden, cache). Prompt length must equal s_max for the
+    attention cache; k / v are stored in ``cache_dtype``."""
+    pat = layer_pattern(cfg)
+    if x.shape[1] != s_max:
+        raise ValueError(f"prefill of {x.shape[1]} tokens into an "
+                         f"{s_max}-slot cache")
+    rope_sc = _rope_sc(cfg, positions)
+    cache = init_cache(cfg, x.shape[0], s_max, cache_dtype, x.device)
+    for g in range(n_groups(cfg)):
+        x, kv = _block_seq(cfg, pat, group_params(params["blocks"], g), x,
+                           rope_sc, use_flash)
+        for pos, (k, v) in kv.items():
+            cache[pos]["k"][g] = k
+            cache[pos]["v"][g] = v
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def forward_decode(params, cfg, x, pos: int, cache):
+    """x ``[B, 1, d]``; pos: the token's position. Returns (hidden,
+    cache), the cache updated in place."""
+    pat = layer_pattern(cfg)
+    rope_sc = _rope_sc(cfg, torch.tensor([pos], device=x.device))
+    for g in range(n_groups(cfg)):
+        cache_g = group_params(cache, g)
+        x = _block_decode(cfg, pat, group_params(params["blocks"], g), x,
+                          rope_sc, cache_g, pos)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def logits_from_hidden(params, cfg, x):
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def embed_tokens(params, cfg, tokens):
+    x = L.embed_apply(params["embed"], tokens)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x

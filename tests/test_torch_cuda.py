@@ -1,5 +1,6 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card, exactly. Marked ``cuda``: they skip without a CUDA device. This
+card: exactly for the integer kernels and the copy, within the stated
+tolerance for flash attention. Marked ``cuda``: they skip without a CUDA device. This
 file imports no JAX, so it also runs on a GPU machine that has none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,6 +14,8 @@ import torch
 from repro_torch.core import smcprog
 from repro_torch.core.bloom import BloomFilter, words_tensor
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import ScanParams
 
 BLOOM_GRID = [(1 << 14, 2, 100), (1 << 16, 4, 5000), (1 << 18, 6, 20000)]
@@ -97,6 +100,94 @@ def test_slot_scan_kernel_matches_plain(cuda_device, variant):
         assert torch.equal(got[f], want[f]), f
 
 
+# the grid and tolerances of tests/test_kernels.py: the kernel sums in
+# another order than the plain softmax (online, 64-key tiles)
+FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
+              (1, 128, 4, 1, 256)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
+                                              dtype, causal):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(B * S + H)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda_device).to(dtype)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == 1
+    flat = [t.permute(0, 2, 1, 3).reshape(-1, S, hd) for t in (q, k, v)]
+    want = (ref.flash_attention_ref(*flat, causal)
+            .reshape(B, H, S, hd).permute(0, 2, 1, 3))
+    assert got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_ragged_keys(cuda_device):
+    """Non-causal with Sk not a multiple of the 64-key tile: the keys past
+    the end get probability 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((4, 128, 128), generator=g, device=cuda_device)
+    k = torch.randn((2, 100, 128), generator=g, device=cuda_device)
+    v = torch.randn((2, 100, 128), generator=g, device=cuda_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, causal=False),
+                               ref.flash_attention_ref(q, k, v, False),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_refusals(cuda_device):
+    kv = torch.zeros((2, 128, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(torch.zeros((4, 128, 32), device=cuda_device),
+                             kv[..., :32], kv[..., :32], causal=False)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention_cuda(torch.zeros((4, 64, 64), device=cuda_device),
+                             kv, kv, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(torch.zeros((4, 128, 64)), kv, kv, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (64, 512), (33, 257), (1, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_rowclone_copy_kernel_matches_plain(cuda_device, shape, dtype):
+    x = torch.arange(int(np.prod(shape)), device=cuda_device).reshape(
+        shape).to(dtype)
+    ops.reset_launches()
+    got = ops.rowclone_copy(x)
+    assert torch.equal(got, ref.rowclone_copy_ref(x))
+    # into slot 1 of a [R, 3, C] tensor (strided rows), and from an
+    # unaligned base (a view one element in)
+    wide = torch.zeros((shape[0], 3, shape[1]), dtype=dtype,
+                       device=cuda_device)
+    want = torch.zeros_like(wide)
+    ops.rowclone_copy(x, out=wide[:, 1])
+    ref.rowclone_copy_ref(x, out=want[:, 1])
+    assert torch.equal(wide, want)
+    flat = torch.arange(x.numel() + 1, device=cuda_device).to(dtype)
+    odd = flat[1:].view(shape)
+    assert torch.equal(rowclone_copy_cuda(odd), odd)
+    torch.cuda.synchronize()
+    assert ops.launches()["rowclone_copy"] == 3
+
+
+@pytest.mark.cuda
+def test_rowclone_copy_cuda_refuses_cpu_out(cuda_device):
+    with pytest.raises(ValueError, match="CUDA"):
+        rowclone_copy_cuda(torch.zeros((4, 8), device=cuda_device),
+                           out=torch.zeros((4, 8)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ops.KERNELS)
 def test_empty_input_launches_and_counts_nothing(cuda_device, name):
@@ -110,6 +201,11 @@ def test_empty_input_launches_and_counts_nothing(cuda_device, name):
         tables, env = vm_inputs(8)
         out = ops.policy_vm(torch.from_numpy(tables[:0]).to(cuda_device),
                             torch.from_numpy(env).to(cuda_device))
+    elif name == "flash_attention":
+        kv = torch.zeros((1, 128, 64), device=cuda_device)
+        out = flash_attention_cuda(kv[:0], kv, kv, causal=True)
+    elif name == "rowclone_copy":
+        out = ops.rowclone_copy(torch.zeros((0, 8), device=cuda_device))
     else:
         e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
         costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)

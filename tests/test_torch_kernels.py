@@ -17,9 +17,11 @@ from repro.kernels.policy_vm import policy_vm_scores
 
 from repro_torch.core import smcprog as psmc
 from repro_torch.core.bloom import words_tensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bloom_probe import bloom_probe_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import policy_vm_cuda
+from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import ScanParams, slot_scan_cuda
 
 torch.set_num_threads(1)
@@ -127,6 +129,13 @@ def test_cpu_routing_counts_no_launches():
     bf, _, probes = bloom_case(1 << 14, 2, 100)
     ops.bloom_probe(words_tensor(bf.bits)[None],
                     torch.from_numpy(probes.view(np.int32))[None], 2, 1 << 14)
+    q = torch.randn(1, 128, 4, 64)
+    kv = torch.randn(1, 128, 2, 64)
+    ops.flash_attention(q, kv, kv, causal=True)
+    ops.flash_attention_bhsd(q[0].transpose(0, 1).contiguous(),
+                             kv[0].transpose(0, 1).contiguous(),
+                             kv[0].transpose(0, 1).contiguous(), False)
+    ops.rowclone_copy(torch.zeros((4, 8), dtype=torch.int8))
     assert ops.launches() == {name: 0 for name in ops.KERNELS}
 
 
@@ -151,6 +160,61 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         slot_scan_cuda(z, z, z, z, z, None, None,
                        torch.zeros((1, 2), dtype=torch.int32), scan_params())
+    q = torch.zeros((8, 128, 64))
+    kv = torch.zeros((2, 128, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, kv, kv, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowclone_copy_cuda(torch.zeros((4, 8)))
+
+
+def test_flash_attention_hands_the_kernel_contiguous_heads(monkeypatch):
+    """The GQA flattening of a batch-1 q is a strided view until copied:
+    the kernel takes contiguous rows only."""
+    seen = []
+
+    def bhsd(q, k, v, causal=True):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return ref.flash_attention_ref(q, k, v, causal)
+
+    monkeypatch.setattr(ops, "flash_attention_bhsd", bhsd)
+    for H, KV in ((4, 4), (4, 1)):
+        ops.flash_attention(torch.randn(1, 128, H, 64),
+                            torch.randn(1, 128, KV, 64),
+                            torch.randn(1, 128, KV, 64))
+    assert seen == [True, True]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 96, 512])
+def test_flash_attention_cuda_refuses_unsupported_head_dims(hd):
+    """The kernel takes hd 64, 128, 256; the plain version takes any."""
+    q = torch.zeros((4, 128, hd))
+    kv = torch.zeros((2, 128, hd))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q, kv, kv, causal=False)
+    assert ops.flash_attention_bhsd(q, kv, kv, False).shape == q.shape
+
+
+def test_flash_attention_cuda_refuses_causal_ragged_and_bad_groups():
+    """Causal needs Sq == Sk: the kernel's mask has no Sk - Sq offset."""
+    q = torch.zeros((4, 128, 64))
+    kv = torch.zeros((2, 256, 64))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention_cuda(q, kv, kv, causal=True)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention_cuda(torch.zeros((3, 128, 64)), kv, kv, causal=False)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q.half(), kv.half(), kv.half(), causal=False)
+
+
+def test_rowclone_copy_cuda_refuses_bad_out():
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        rowclone_copy_cuda(torch.zeros((8, 4)).t())
+    with pytest.raises(ValueError, match="out must be"):
+        rowclone_copy_cuda(x, out=torch.zeros((4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="out must be"):
+        rowclone_copy_cuda(x, out=torch.zeros((8, 4)).t())
 
 
 def test_routing_rejects_other_devices():

@@ -7,7 +7,7 @@ Usage (from the repository root, on a machine with an NVIDIA H100)::
 
 Phases, one line each:
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. ``bloom_probe`` kernel against its plain version (the reference test
    grid, and every global row id through the paper-size filter);
 3. ``policy_vm`` kernel against its plain version (built-ins plus
@@ -21,7 +21,9 @@ Phases, one line each:
    ``run_policies`` over the built-ins; every slot-scan group's output is
    checked as it comes (each real request served, with a response tag);
 6. each kernel's launches on the main path, its time beside its plain
-   version's and its bound;
+   version's and its bound; every main-path ``slot_scan`` group relaunched
+   once: the scan's summed device time and ns per slot of the
+   largest-slot and the largest-batch group, beside the phase-5 wall time;
 7. ``slot_scan`` against the plain engine over the main path's own
    groups, the plain engine running in CPU worker processes;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
@@ -36,12 +38,17 @@ Phases, one line each:
 10. the KV-cache fork: one prompt's cache forked 4 ways through
    ``rowclone_copy`` (counters reset just before), bit for bit against the
    tiled fork, then 16 decode steps from each fork with identical logits;
-11. device time by kernel of one full-width prefill, one decode step and
-   one 4-way fork, beside their wall time (the device's busy share);
+11. device time by kernel of a full-width prefill, a decode step and a
+   4-way fork, beside their wall time (the device's busy share), each
+   over back-to-back calls spanning at least ``DEVICE_WINDOW_MS``;
 12. each LM kernel's time at the serving path's shapes beside its plain
    version's, its bound and the PyTorch call that computes the same
    function (``scaled_dot_product_attention``, ``clone``), which the port
-   itself never calls; its device time per launch comes from phase 11.
+   itself never calls (``rowclone_copy`` and ``clone`` timed in turns).
+
+Device ms per launch comes from a profiled window of back-to-back calls
+at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
+shows no launch; each entry names its method.
 
 The engine's entry points launch ``bloom_probe`` and ``slot_scan``, the
 serving engine ``flash_attention`` and ``rowclone_copy``; the
@@ -58,6 +65,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -67,6 +75,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+DEVICE_WINDOW_MS = 20.0       # least span of a profiled window (device_ms)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 rate (data sheet)
 REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe.py:21",
@@ -89,7 +98,10 @@ LM_SEED = 0
 LM_BATCH, LM_PROMPT, LM_NEW, FORK_N = 4, 1024, 16, 4
 FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
               (1, 128, 4, 1, 256)]     # tests/test_kernels.py
-ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192)]
+# the reference copy grid, the fork's shape class (36 rows written 4 row
+# sizes apart, each larger than one block's chunk) and a large ragged copy
+ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192), (36, 65664),
+                   (3, 300007)]
 # kernel vs plain on one attention call: the tolerances of
 # tests/test_kernels.py (the kernel's online softmax sums in another order)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -129,15 +141,43 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_name, reps=5):
-    """Mean device time per call of the CUDA kernels whose name contains
-    ``kernel_name``, from the profiler's CUPTI trace; None when the trace
-    shows no such kernel."""
+def device_ms(fn, kernel_name=None, window_ms=DEVICE_WINDOW_MS):
+    """Device ms per launch of the CUDA kernels whose name contains
+    ``kernel_name`` (per call of ``fn`` over all its device work when
+    None), and how it was taken: the profiler's CUPTI trace over enough
+    back-to-back calls of ``fn`` to span ``window_ms`` (short profiled
+    sessions came back empty), else, when the trace still shows no such
+    kernel, CUDA events over the same calls (ms per call)."""
     import torch
-    fn()
+    reps = max(1, math.ceil(window_ms / max(cuda_ms(fn, reps=1), 1e-3)))
     rows, _ = profile_rows(torch, lambda: [fn() for _ in range(reps)])
-    total = sum(ms for key, ms, _ in rows if kernel_name in key)
-    return total / reps if total > 0 else None
+    if kernel_name is None:
+        total = sum(ms for _, ms, _ in rows)
+        if total > 0:
+            return total / reps, f"profiler, all device work of {reps} calls"
+    else:
+        hits = [(ms, n) for key, ms, n in rows if kernel_name in key]
+        n = sum(c for _, c in hits)
+        if n:
+            return sum(ms for ms, _ in hits) / n, f"profiler, {n} launches"
+    return cuda_ms(fn, reps=reps), f"cuda events, {reps} calls"
+
+
+def device_fields(fn, kernel_name):
+    """``device_ms`` and ``device_ms_method`` of a kernel's JSON entry."""
+    ms, method = device_ms(fn, kernel_name)
+    return {"device_ms": ms, "device_ms_method": method}
+
+
+def turns_ms(fns, reps, rounds=3):
+    """``{name: [ms per call, one per round]}``: the functions timed in
+    turns (a, b, a, b, ...) with CUDA events, ``reps`` calls a round, so
+    that two versions meet the same card state."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(cuda_ms(fn, reps=reps))
+    return out
 
 
 class Recorder:
@@ -452,8 +492,7 @@ def phase_timing(torch, ops, ref, rec, counts, vm_args):
             got, want = kern(*args), plain(*args)
             err = float((got.int() - want.int()).abs().max())
             ms = cuda_ms(lambda: kern(*args), reps=20)
-            extra = {"device_ms": device_ms(lambda: kern(*args),
-                                            "bloom_probe_kernel")}
+            extra = device_fields(lambda: kern(*args), "bloom_probe_kernel")
             plain_ms = cuda_ms(lambda: plain(*args), reps=3)
             nbytes = words.numel() * 4 + keys.numel() * 5
             nops = keys.numel() * k * 14
@@ -463,8 +502,7 @@ def phase_timing(torch, ops, ref, rec, counts, vm_args):
             got, want = kern(*args), plain(*args)
             err = float((got - want).abs().max())
             ms = cuda_ms(lambda: kern(*args), reps=20)
-            extra = {"device_ms": device_ms(lambda: kern(*args),
-                                            "policy_vm_kernel"),
+            extra = {**device_fields(lambda: kern(*args), "policy_vm_kernel"),
                      "on_path": f"its VM body (policy_vm.cuh) ran inside "
                                 f"slot_scan in {n_vm} main-path groups"}
             plain_ms = cuda_ms(lambda: plain(*args), reps=3)
@@ -486,8 +524,7 @@ def phase_timing(torch, ops, ref, rec, counts, vm_args):
             err = max(float((kc[f] - pc[f]).abs().max()) for f in FIELDS)
             plain_ms = cuda_ms(lambda: plain(*cargs), reps=1)
             closing = args[:-1] + (dataclasses.replace(p, slots=0),)
-            extra = {"device_ms": device_ms(lambda: kern(*args),
-                                            "slot_scan_kernel", reps=1),
+            extra = {**device_fields(lambda: kern(*args), "slot_scan_kernel"),
                      "slots": p.slots, "plain_slots": cut.slots,
                      "kernel_ms_at_plain_slots": cuda_ms(
                          lambda: kern(*cargs), reps=3),
@@ -510,6 +547,49 @@ def phase_timing(torch, ops, ref, rec, counts, vm_args):
                     "bound_ms": bms, "bound_by": bby, "library_ms": None,
                     "shape": shape, **extra})
     return out
+
+
+def scan_totals(torch, rec, wall_s):
+    """The main path's ``slot_scan`` launches, each group relaunched once
+    on its own inputs: their summed device ms (one profiled window; CUDA
+    events per group when the trace shows fewer launches than groups),
+    and ns per budget slot of the largest-slot and the largest-batch
+    group, beside the engine's phase-5 wall time."""
+    kern = rec.orig["slot_scan"]
+    groups = rec.groups
+    per = [cuda_ms(lambda: kern(*g["args"]), reps=1) for g in groups]
+    rows, _ = profile_rows(torch, lambda: [kern(*g["args"]) for g in groups])
+    hits = [(ms, n) for key, ms, n in rows if "slot_scan_kernel" in key]
+    n = sum(c for _, c in hits)
+    if n == len(groups):
+        total, method = sum(ms for ms, _ in hits), f"profiler, {n} launches"
+    else:
+        total, method = sum(per), f"cuda events, {len(per)} groups"
+
+    def at(i):
+        p = groups[i]["args"][-1]
+        return {"tag": groups[i]["tag"], "batch": p.batch, "n": p.n,
+                "slots": p.slots, "ms": per[i],
+                "ns_per_slot": per[i] * 1e6 / p.slots}
+    idx = range(len(groups))
+    by_slots = at(max(idx, key=lambda i: (groups[i]["args"][-1].slots,
+                                         groups[i]["args"][-1].batch)))
+    by_batch = at(max(idx, key=lambda i: (groups[i]["args"][-1].batch,
+                                         groups[i]["args"][-1].slots)))
+    engine_s = sum(v for k, v in wall_s.items() if k != "trace_setup")
+    say(f"phase 6 slot_scan over its {len(groups)} main-path launches: "
+        f"{total:.3f} ms of device time ({method}); largest-slot group "
+        f"({by_slots['tag']}, {by_slots['batch']} x {by_slots['n']}, "
+        f"{by_slots['slots']} slots) {by_slots['ns_per_slot']:.1f} ns per "
+        f"slot, largest-batch group ({by_batch['tag']}, {by_batch['batch']} "
+        f"x {by_batch['n']}, {by_batch['slots']} slots) "
+        f"{by_batch['ns_per_slot']:.1f} ns per slot; engine wall (phase 5) "
+        f"{engine_s:.2f} s, trace setup {wall_s['trace_setup']:.2f} s")
+    return {"launches": len(groups), "device_ms_total": total,
+            "device_ms_method": method,
+            "largest_slots": by_slots, "largest_batch": by_batch,
+            "engine_wall_s": engine_s,
+            "trace_setup_s": wall_s["trace_setup"], "per_group_ms": per}
 
 
 def plain_scan_job(arrays, params):
@@ -600,7 +680,8 @@ def close(got, want, atol, rtol):
 def phase_lm_kernels(torch, ops, ref, dev):
     """``flash_attention`` on the reference flash test grid (float32 and
     bf16, causal and not) and ``rowclone_copy`` on the reference copy
-    grid (float32, bf16, int8; fresh, into strided rows, from an
+    grid plus the fork's shape class and a large ragged copy (float32,
+    bf16, int8; fresh, into slot 1 of FORK_N strided slots, from an
     unaligned base) against their plain versions on the card."""
     errs = {}
     n = 0
@@ -630,7 +711,8 @@ def phase_lm_kernels(torch, ops, ref, dev):
                 shape).to(dt)
             check(torch.equal(ops.rowclone_copy(x), ref.rowclone_copy_ref(x)),
                   f"rowclone_copy != plain at {shape} {dt}")
-            wide = torch.zeros((shape[0], 3, shape[1]), dtype=dt, device=dev)
+            wide = torch.zeros((shape[0], FORK_N, shape[1]), dtype=dt,
+                               device=dev)
             want = torch.zeros_like(wide)
             ops.rowclone_copy(x, out=wide[:, 1])
             ref.rowclone_copy_ref(x, out=want[:, 1])
@@ -826,7 +908,8 @@ def profile_rows(torch, fn):
 def phase_profile(torch, model, params, prompts, fork, fork_fn):
     """Where a full-width prefill's, a decode step's and a fork's time
     goes: device time by kernel and the device's busy share of the wall
-    time."""
+    time, over enough back-to-back calls to span ``DEVICE_WINDOW_MS``
+    (a lone fork's profile came back empty)."""
     out = {}
     with torch.no_grad():
         runs = {"prefill": lambda: model.prefill_fn(params,
@@ -837,23 +920,20 @@ def phase_profile(torch, model, params, prompts, fork, fork_fn):
                     LM_PROMPT + LM_NEW - 1),
                 "fork": fork_fn}
         for name, fn in runs.items():
-            fn()
-            rows, wall = profile_rows(torch, fn)
+            calls = max(1, math.ceil(DEVICE_WINDOW_MS / max(
+                cuda_ms(fn, reps=1), 1e-3)))
+            rows, wall = profile_rows(torch,
+                                      lambda: [fn() for _ in range(calls)])
             busy = sum(ms for _, ms, _ in rows)
-            out[name] = {"wall_ms": wall, "device_ms": busy,
-                         "busy_share": busy / wall, "kernels": rows}
-            say(f"phase 11 {name} profile: wall {wall:.2f} ms, device busy "
-                f"{busy:.2f} ms ({100 * busy / wall:.1f}%): " + ", ".join(
-                    f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in rows[:5]))
+            out[name] = {"calls": calls, "wall_ms": wall / calls,
+                         "device_ms": busy / calls, "busy_share": busy / wall,
+                         "kernels": rows}
+            say(f"phase 11 {name} profile ({calls} calls): wall "
+                f"{wall / calls:.2f} ms, device busy {busy / calls:.2f} ms "
+                f"({100 * busy / wall:.1f}%) per call; over all calls: "
+                + ", ".join(f"{k[:48]} {ms:.3f} ms x{n}"
+                            for k, ms, n in rows[:5]))
     return out
-
-
-def per_launch_ms(profile, kernel_name):
-    """Device ms per launch of the kernels named ``kernel_name`` in a
-    phase-11 profile; None when the trace shows none."""
-    hits = [(ms, n) for key, ms, n in profile["kernels"] if kernel_name in key]
-    n = sum(c for _, c in hits)
-    return sum(ms for ms, _ in hits) / n if n else None
 
 
 def phase_fork(torch, ops, dev, lm, model, params, prompts):
@@ -920,11 +1000,11 @@ def sdpa_call(torch, q, k, v, causal):
 
 
 def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
-                    rowclone_launches, profiles):
+                    rowclone_launches):
     """Each LM kernel's time at the serving path's shapes: flash on the
     first prefill layer's inputs, rowclone on one fork copy of a cache
-    leaf into its slot; device ms per launch from the phase-11 profiles
-    of the path's own calls."""
+    leaf into its slot, timed in turns with ``clone`` of the same leaf;
+    device ms per launch over a profiled window of back-to-back calls."""
     out = []
     q, k, v, causal = rec.flash_args
     kern = rec.orig[2]
@@ -950,8 +1030,8 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
         "bound_ms": bms, "bound_by": bby,
         "library_ms": cuda_ms(lambda: sdpa_call(torch, q, k, v, causal),
                               reps=10),
-        "device_ms": per_launch_ms(profiles["prefill"],
-                                   "flash_attention_kernel"),
+        **device_fields(lambda: kern(q, k, v, causal),
+                        "flash_attention_kernel"),
         "library_max_abs_err": lib_err,
         "shape": f"q {list(q.shape)}, k/v {list(k.shape)} {q.dtype}, "
                  f"causal={causal} (one prefill layer)",
@@ -968,18 +1048,21 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
     check(err == 0, "rowclone_copy != its input on a fork leaf")
     nbytes = 2 * flat.numel() * flat.element_size()
     bms, bby = bound_ms(nbytes, 0)
+    turns = turns_ms({"kernel": lambda: copy(flat, out=slot),
+                      "clone": lambda: flat.clone()}, reps=20)
     out.append({
         "name": "rowclone_copy", "route": "cuda",
         "source": SOURCES["rowclone_copy"],
         "replaces": REPLACES["rowclone_copy"], "launches": rowclone_launches,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: copy(flat, out=slot), reps=20),
+        "ms": sum(turns["kernel"]) / len(turns["kernel"]),
         "plain_ms": cuda_ms(lambda: ref.rowclone_copy_ref(flat, out=slot),
                             reps=20),
         "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: flat.clone(), reps=20),
-        "device_ms": per_launch_ms(profiles["fork"],
-                                   "rowclone_copy_kernel"),
+        "library_ms": sum(turns["clone"]) / len(turns["clone"]),
+        "turns_ms": turns,
+        **device_fields(lambda: copy(flat, out=slot), "rowclone_copy_kernel"),
+        "library_device_ms": device_ms(lambda: flat.clone()),
         "shape": f"{list(flat.shape)} {flat.dtype} into slot 1 of "
                  f"{list(wide.shape)} (one fork copy of a cache leaf)",
         "bytes": nbytes})
@@ -1042,6 +1125,9 @@ def main(argv=None):
         check(any(g["args"][-1].table_len > 0 for g in rec.groups),
               "no main-path slot_scan group ran the policy VM")
         kernels = phase_timing(torch, ops, ref, rec, counts, vm_args)
+        scan = next(k for k in kernels if k["name"] == "slot_scan")
+        scan["all_launches"] = scan_totals(torch, rec,
+                                           report["main"]["wall_s"])
         say("phase 6 kernels: " + ", ".join(
             f"{k['name']} {k['launches']} launches, {k['ms']:.3f} ms per "
             f"call, device {k['device_ms']} ms (plain {k['plain_ms']:.3f} "
@@ -1049,7 +1135,6 @@ def main(argv=None):
             for k in kernels))
         err, report["plain_groups"] = phase_plain_groups(np, rec,
                                                          slower_buckets)
-        scan = next(k for k in kernels if k["name"] == "slot_scan")
         scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
         scan["plain_groups"] = report["plain_groups"]
 
@@ -1064,7 +1149,7 @@ def main(argv=None):
             torch, model, params, prompts, fork,
             lambda: fork_engine.fork_cache(cache1, FORK_N))
         kernels += phase_lm_timing(torch, ops, ref, lm_rec, cache1, flash_n,
-                                   rc_n, report["profile"])
+                                   rc_n)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

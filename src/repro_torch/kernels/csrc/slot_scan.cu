@@ -1,5 +1,5 @@
-// The emulator's slot scan: one thread runs one trace row of a batch
-// group through the whole slot budget.
+// The emulator's slot scan: one warp runs one trace row of a batch group
+// through the whole slot budget.
 //
 // Replaces the lax.scan over _make_slot_body in
 // src/repro/core/emulator.py (_run_core, the scan at line 531), which
@@ -8,24 +8,93 @@
 //
 // What bounds it on the H100: each slot depends on the one before (the
 // MC counter, the DRAM frontier, the bank state), so a row is a serial
-// chain of `slots` steps, each a few hundred dependent integer ops and
-// cached loads. Bytes (the five trace arrays, the weak flags, the two
-// tag arrays) and total operations are far below the card's rates; the
-// floor is slots x the latency of one step, whatever the batch.
-// Design: one block of one thread per row (rows on different SMs, no
-// warp divergence between rows); the hardware queue (Q = max(window, 2))
-// and the per-bank state live in registers / local memory, the policy
-// table in shared memory; t_issue / t_resp live in global memory because
-// the issue frontier reads them at data-dependent distances (window and
-// dep). The Bloom probe is not in the loop: its key depends only on the
-// request, so the wrapper probes every request once (bloom_probe kernel)
-// and this kernel reads one int8 flag per served request. The scheduling
-// decision runs the policy VM body of policy_vm.cuh on every visible
-// lane; without a table the legacy FR-FCFS / FCFS flag decides.
+// chain of `slots` steps. Bytes (the five trace arrays, the weak flags,
+// the two tag arrays) and total operations are far below the card's
+// rates; the floor is slots x the latency of one step, whatever the
+// batch. A warp issues in order, so a step costs the length of its
+// dependent chain plus one cycle per instruction, and a branch about as
+// much as a shared-memory load: the design keeps all three short.
 //
-// Bit-exactness with the reference: int32 wraparound via common.cuh,
-// floor division / modulo as in numpy, argmin / first-free ties to the
-// first lane (strict '<' scans).
+// - One block of one warp per row. Queue lane q lives in the registers
+//   of lane q % 32 (Q <= 64: a lane holds two): the request's index,
+//   t_issue, bank, row and kind / weak flags, copied at issue, and its
+//   bank's state (open row, ready, ACT time), kept current by every
+//   service. The free lanes are a 64-bit mask kept alike in every lane;
+//   the first free lane is its lowest set bit, as the strict scan picks
+//   it.
+// - Scalar state (issue pointer, MC counter, DRAM frontier, counters)
+//   is computed alike in every lane, so nothing is broadcast; the picked
+//   request reaches every lane by shuffles from its owner.
+// - The earliest issue time m over the queue is kept current (a min at
+//   issue, one min-reduction after serving the lane that held it): a
+//   slot serves iff m <= cutoff, so an idle slot costs no warp traffic.
+// - The scheduling decision runs across the warp: row hits and the
+//   lanes holding the minimum by ballot (ties to the first lane, as the
+//   strict '<' scans), a min-reduction only where several lanes hit.
+//   With a policy table every visible lane runs the VM body of
+//   policy_vm.cuh in its own thread, all at once.
+// - The issue frontier is not rerun while it is stuck: after it failed
+//   at ptr, it would fail again until a service writes the t_resp it
+//   waited on or frees a lane. Its next request sits in registers, and
+//   an advance has one branch, its exit.
+// - The tick conversions (t * kFP // den, and that // tREFI) of every
+//   lane's issue time are computed beside the decision's warp traffic,
+//   the DRAM frontier's is kept with it; the MC counter's is computed
+//   only when it is later than the picked request. Divisions by the
+//   group's fixed divisors use a precomputed multiplier, without a
+//   branch.
+// - Rarely taken paths (staging, the policy VM, a key at BIG) are out
+//   of line or behind one branch, so that the slot loop stays compact.
+// - Row state on chip, in shared memory: the bank state, the policy
+//   table, a stage of the trace ahead of the issue pointer (filled by the
+//   warp with coalesced loads, kStage / 2 entries at a time) and a ring of
+//   the t_resp of the last kRing issued requests. t_issue / t_resp are
+//   written through to global memory as they are set; the outputs are
+//   those global arrays.
+// - A row stops once it has drained (condition (c) below), so the
+//   surplus slots of a group's budget cost nothing.
+//
+// The Bloom probe is not in the loop: its key depends only on the
+// request, so the wrapper probes every request once (bloom_probe kernel)
+// and this kernel reads one int8 flag per request.
+//
+// Exactness conditions (held by tests/test_torch_cuda.py's slot-scan
+// cases and by chip_smoke.py phases 4 and 7 against the plain engine):
+//
+// (a) The ring. t_resp[i] is read only by the issue frontier, at
+//     i = j - window and i = j - dep for the request j = ptr being
+//     issued, so always i < ptr. The ring slot i % kRing belongs to the
+//     latest issued request of that residue: the kRing requests
+//     [ptr - kRing, ptr) own distinct slots, written at issue (BIG for a
+//     real request, t_new for a NOP) and at service. The window read
+//     (1 <= window <= Q <= 64 < kRing, or BIG for a window below 1: the
+//     reference's initial value of a request not yet issued) is always
+//     in the ring; a dependence read more than kRing back goes to global
+//     memory, which holds every value set outside the trailing pass
+//     (written through). The wrapper refuses a window above Q.
+//     A request not yet served lies at index >= ptr - window: request
+//     i + window issued only after win_known saw t_resp[i] < BIG
+//     (emulator.py _issue_frontier, line 280), and issue is in order.
+//     With window <= SCAN_MAX_Q < kRing a service therefore always lands
+//     in the ring; the guarded ring write in the service keeps the
+//     kernel exact even where it would not.
+// (b) The trailing pass. The reference keeps only the t_issue of its
+//     trailing frontier pass: the t_resp of NOPs it resolves is seen by
+//     later advances of the same pass and never stored. Here those go to
+//     the ring alone (never to global memory), and the pass moves the
+//     pointer by at most 8 < kRing, so every read of them hits the ring.
+// (c) When a row stops. Only when ptr == n and no queue lane is valid:
+//     then the frontier returns at once (j < n fails) and the slot has
+//     nothing visible and nothing valid (no idle hop), so every later
+//     slot leaves the state as it is. The trailing pass would do
+//     nothing and is skipped, and the closing reduction reads the same
+//     arrays the reference would, NOP entries included.
+// (d) Bit-exactness as in the reference: int32 wraparound via
+//     common.cuh, numpy floor division and modulo (FloorDiv below is
+//     exact for every int32 dividend and divisor >= 1; the wrapper
+//     refuses a tREFI or bank count below 1), the host-rounded
+//     scale_num, argmin and first-free ties to the first lane. Keys at or
+//     above BIG (issue times past 2^30) take the general argmin.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -33,6 +102,8 @@
 
 #define SCAN_MAX_Q 64
 #define SCAN_MAX_BANKS 64
+#define SCAN_RESP_RING 1024
+#define SCAN_STAGE 512
 
 namespace {
 
@@ -41,6 +112,14 @@ constexpr int kWrite = 1;
 constexpr int kRcCopy = 2;
 constexpr int kRcInit = 3;
 constexpr int kNop = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRing = SCAN_RESP_RING;   // power of two, > SCAN_MAX_Q + 8
+constexpr int kStage = SCAN_STAGE;      // power of two, >= 2 * 8
+// key of a lane at or past Q: above every key a real lane can hold, so
+// it never wins a tie against one
+constexpr int kKeyPast = 0x7fffffff;
+// a request's flags, from its kind and (with weak flags) weak row
+constexpr int kFWrite = 1, kFRc = 2, kFNop = 4, kFWeak0 = 8;
 
 // Host parameter block, in this order (see slot_scan.py).
 struct ScanParams {
@@ -53,91 +132,151 @@ constexpr int kNumParams = sizeof(ScanParams) / sizeof(int);
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// Exact a * num // den without int32 overflow for the engine's ranges.
-__device__ __forceinline__ int mul_div(int a, int num, int den) {
-  const int q = floordiv(a, den);
-  const int r = wsub(a, wmul(q, den));
-  return wadd(wmul(q, num), floordiv(wmul(r, num), den));
-}
+// Floor division by a fixed divisor d >= 1, without a branch: numpy's
+// a // d for every int32 a. With l = ceil(log2 d), m = ceil(2^(31 + l) /
+// d) < 2^32 and (u * m) >> (31 + l) == u // d for 0 <= u < 2^31, because
+// u * (m * d - 2^(31 + l)) < 2^31 * d <= 2^(31 + l). A negative a maps to
+// ~a >= 0: a // d == ~(~a // d).
+struct FloorDiv {
+  int d;
+  unsigned mul;
+  int shift;
 
-// The trailing frontier pass computes t_resp of NOPs it resolves but the
-// reference discards them (only its t_issue is kept): a shadow holds
-// those writes so later advances of the same pass still see them.
-struct RespShadow {
-  int idx[8];
-  int val[8];
-  int count;
+  __device__ explicit FloorDiv(int den) : d(den) {
+    shift = 31 + (den > 1 ? 32 - __clz(den - 1) : 0);
+    mul = static_cast<unsigned>(((1ull << shift) + den - 1) / den);
+  }
+  __device__ __forceinline__ int div(int a) const {
+    const unsigned sign = static_cast<unsigned>(a >> 31);
+    const unsigned u = static_cast<unsigned>(a) ^ sign;
+    const unsigned q = static_cast<unsigned>(
+        (static_cast<unsigned long long>(u) * mul) >> shift);
+    return static_cast<int>(q ^ sign);
+  }
+  __device__ __forceinline__ int mod(int a) const {
+    return wsub(a, wmul(div(a), d));
+  }
 };
 
-template <bool kShadow>
-__device__ __forceinline__ int read_resp(const int* tr, int i,
-                                         const RespShadow& sh) {
-  if (kShadow) {
-    for (int s = sh.count - 1; s >= 0; --s)
-      if (sh.idx[s] == i) return sh.val[s];
-  }
-  return tr[i];
+// Exact a * num // den without int32 overflow for the engine's ranges.
+__device__ __forceinline__ int mul_div(int a, int num, const FloorDiv& den) {
+  const int q = den.div(a);
+  const int r = wsub(a, wmul(q, den.d));
+  return wadd(wmul(q, num), den.div(wmul(r, num)));
 }
 
-// In-order issue of up to `upto` requests into free queue lanes
-// (emulator.py _issue_frontier). A disabled advance leaves every input
-// as it was, so the loop stops at the first one.
-template <bool kShadow>
-__device__ void issue_frontier(const ScanParams& p, const int* kind,
-                               const int* delta, const int* dep, int* ti,
-                               int* tr, int* queue, int& ptr, int upto,
-                               RespShadow& sh) {
-  const int n = p.n;
-  for (int u = 0; u < upto; ++u) {
-    const int j = ptr;
-    const int jc = clampi(j, 0, n - 1);
-    const int prev_issue = j > 0 ? ti[clampi(j - 1, 0, n - 1)] : 0;
-    const int base = wadd(prev_issue, delta[jc]);
-    const int wj = j - p.window;
-    const int tw = read_resp<kShadow>(tr, clampi(wj, 0, n - 1), sh);
-    const bool win_known = (wj < 0) || (tw < REPRO_BIG);
-    const int win_t = wj >= 0 ? wadd(tw, 1) : 0;
-    const int dpj = dep[jc];
-    const int dj = wsub(j, dpj);
-    const bool dep_on = dpj > 0;
-    const int td = read_resp<kShadow>(tr, clampi(dj, 0, n - 1), sh);
-    const bool dep_known = !dep_on || dj < 0 || td < REPRO_BIG;
-    const int dep_t = (dep_on && dj >= 0) ? wadd(td, 1) : 0;
-    int slot = -1;
-    for (int q = 0; q < p.q; ++q)
-      if (slot < 0 && queue[q] < 0) slot = q;
-    const bool is_nop = kind[jc] == kNop;
-    const bool can = (j < n) && win_known && dep_known && (slot >= 0 || is_nop);
-    if (!can) return;
-    const int t_new = imax(imax(base, win_t), dep_t);
-    ti[jc] = t_new;
-    if (is_nop) {
-      if (kShadow) {
-        sh.idx[sh.count] = jc;
-        sh.val[sh.count] = t_new;
-        ++sh.count;
-      } else {
-        tr[jc] = t_new;
-      }
-    } else {
-      queue[slot] = jc;
-    }
-    ++ptr;
-  }
+// a * num // kFP, kFP = 2^12: an arithmetic shift is the floor division
+__device__ __forceinline__ int mul_div_fp(int a, int num) {
+  return wadd(wmul(a >> 12, num), wmul(a & (kFP - 1), num) >> 12);
 }
 
-__global__ void slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
-                                 const int* __restrict__ banks,
-                                 const int* __restrict__ rows,
-                                 const int* __restrict__ deltas,
-                                 const int* __restrict__ deps,
-                                 const int8_t* __restrict__ weak_all,
-                                 const int* __restrict__ tables,
-                                 const int* __restrict__ costs,
-                                 int* __restrict__ t_issue,
-                                 int* __restrict__ t_resp,
-                                 int* __restrict__ stats) {
-  extern __shared__ int s_table[];
+// One queue lane's request, copied at issue, and the state of its bank,
+// kept current by every service.
+struct Lane {
+  int idx, t, bank, row, flags;
+  int open, ready, act;
+};
+
+__device__ __forceinline__ Lane select_lane(bool c, const Lane& a,
+                                            const Lane& b) {
+  return {c ? a.idx : b.idx,     c ? a.t : b.t,
+          c ? a.bank : b.bank,   c ? a.row : b.row,
+          c ? a.flags : b.flags, c ? a.open : b.open,
+          c ? a.ready : b.ready, c ? a.act : b.act};
+}
+
+// The next request the frontier would issue, read from the stage.
+struct Next {
+  int flags, delta, dep, bank, row;
+};
+
+__device__ __forceinline__ int request_flags(int kind, int weak0) {
+  return (kind == kWrite ? kFWrite : 0) |
+         (kind == kRcCopy || kind == kRcInit ? kFRc : 0) |
+         (kind == kNop ? kFNop : 0) | (weak0 ? kFWeak0 : 0);
+}
+
+// The lane q < 64 of the lowest set bit of (hi << 32 | lo); some bit set.
+__device__ __forceinline__ int first_set(unsigned lo, unsigned hi) {
+  return lo != 0 ? __ffs(lo) - 1 : 31 + __ffs(hi);
+}
+
+// The first lane q < 64 whose flag is set (lane q % 32's lo flag for
+// q < 32, hi flag for q >= 32); some flag must be set.
+__device__ __forceinline__ int first_lane(bool lo, bool hi) {
+  return first_set(__ballot_sync(kFull, lo), __ballot_sync(kFull, hi));
+}
+
+// The lowest lane q < 64 whose key (lane q % 32's klo for q < 32, khi
+// for q >= 32) is the smallest: argmin with ties to the first lane.
+__device__ __forceinline__ int warp_argmin(int klo, int khi) {
+  const int m = __reduce_min_sync(kFull, imin(klo, khi));
+  return first_lane(klo == m, khi == m);
+}
+
+// A row's on-chip state (one warp per block), one struct so that every
+// access is one base address plus an offset.
+struct RowState {
+  int ring[kRing];                        // t_resp of the last kRing issued
+  int flags[kStage], delta[kStage], dep[kStage], bank[kStage], row[kStage];
+  int open[SCAN_MAX_BANKS], ready[SCAN_MAX_BANKS], act[SCAN_MAX_BANKS];
+  int table[(REPRO_VM_MAX_L + 1) * 4];
+};
+__shared__ RowState sm;
+
+// Stages trace entries [from, to) with coalesced loads. Out of line, as
+// are the other rarely taken paths, so that the slot loop stays compact
+// in the instruction cache.
+__device__ __noinline__ void stage_fill(const int* kind, const int* bank,
+                                        const int* row, const int* delta,
+                                        const int* dep, const int8_t* weak,
+                                        int from, int to) {
+  for (int i = from + static_cast<int>(threadIdx.x); i < to; i += 32) {
+    const int s = i & (kStage - 1);
+    sm.flags[s] = request_flags(__ldg(kind + i),
+                               weak != nullptr && __ldg(weak + i) == 0);
+    sm.bank[s] = __ldg(bank + i);
+    sm.row[s] = __ldg(row + i);
+    sm.delta[s] = __ldg(delta + i);
+    sm.dep[s] = __ldg(dep + i);
+  }
+  __syncwarp();
+}
+
+// One visible lane's policy score and boost: the VM body of
+// policy_vm.cuh over its scheduling environment (hammer_ct, para_rand:
+// no fault model).
+__device__ __noinline__ int2 lane_policy(int L, Lane x, int q, int min_vis,
+                                         int wp, int dram_now, int last_bank,
+                                         FloorDiv nbanks) {
+  int env[REPRO_N_LOADS];
+  int vals[REPRO_VM_MAX_L];
+  env[0] = x.t;                                           // age
+  env[1] = wsub(x.t, min_vis);                            // age_rel
+  env[2] = x.open == x.row ? 1 : 0;                       // row_hit
+  env[3] = x.bank;                                        // bank
+  env[4] = x.row;                                         // row
+  env[5] = (x.flags & kFWrite) ? 1 : 0;                   // is_write
+  env[6] = x.ready > dram_now ? 1 : 0;                    // bank_busy
+  env[7] = nbanks.mod(wsub(wsub(x.bank, last_bank), 1));  // rr_dist
+  env[8] = q;                                             // qslot
+  env[9] = wp;                                            // write_pressure
+  env[10] = 0;                                            // hammer_ct
+  env[11] = 0;                                            // para_rand
+  int score, boost, mit;
+  policy_vm_lane(sm.table, L, env, vals, &score, &boost, &mit);
+  return make_int2(score, boost);
+}
+
+__global__ void __launch_bounds__(32)
+slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
+                 const int* __restrict__ banks, const int* __restrict__ rows,
+                 const int* __restrict__ deltas, const int* __restrict__ deps,
+                 const int8_t* __restrict__ weak_all,
+                 const int* __restrict__ tables, const int* __restrict__ costs,
+                 int* __restrict__ t_issue, int* __restrict__ t_resp,
+                 int* __restrict__ stats) {
+  const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const size_t off = static_cast<size_t>(b) * p.n;
   const int* kind = kinds + off;
@@ -148,147 +287,251 @@ __global__ void slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
   const int8_t* weak = p.use_weak ? weak_all + off : nullptr;
   int* ti = t_issue + off;
   int* tr = t_resp + off;
-
+  const int n = p.n;
+  const int Q = p.q;
   const int L = p.table_len;
+
   if (L > 0) {
     const int n_tab = (L + 1) * 4;
-    for (int i = 0; i < n_tab; ++i)
-      s_table[i] = tables[static_cast<size_t>(b) * n_tab + i];
+    for (int i = lane; i < n_tab; i += 32)
+      sm.table[i] = tables[static_cast<size_t>(b) * n_tab + i];
+  }
+  for (int i = lane; i < SCAN_MAX_BANKS; i += 32) {
+    sm.open[i] = -1;
+    sm.ready[i] = 0;
+    sm.act[i] = 0;
   }
   const int counter_inc = costs[2 * b];
   const int smc_lat = costs[2 * b + 1];
   const int mc_issue = p.nots ? smc_lat : p.mc_issue_ts;
   const int vis_slack = p.nots ? smc_lat : 0;
-  const int den = imax(p.scale_num, 1);
+  const FloorDiv den(imax(p.scale_num, 1));
+  const FloorDiv refi(p.tREFI);
+  const FloorDiv nbanks(p.n_banks);
+  // 1 <= window <= Q <= 64 < kRing (the wrapper refuses a larger
+  // window): t_resp[j - window] is in the ring (see (a)); a window below
+  // 1 reads a request not yet issued, BIG
+  const bool win_ok = p.window >= 1;
 
-  int queue[SCAN_MAX_Q];
-  for (int q = 0; q < p.q; ++q) queue[q] = -1;
-  int open_row[SCAN_MAX_BANKS], ready[SCAN_MAX_BANKS], act_at[SCAN_MAX_BANKS];
-  for (int i = 0; i < p.n_banks; ++i) {
-    open_row[i] = -1;
-    ready[i] = 0;
-    act_at[i] = 0;
-  }
-  int bus_busy = 0, refs_done = 0;
-  int ptr = 0, mc_release = 0, dram_now = 0, hits = 0, served = 0, smc = 0;
-  int last_bank = -1;
+  // trace entries [hi - kStage, hi) are staged (those below 0 excepted);
+  // the frontier never reads below ptr, so the next kStage / 2 entries
+  // are staged once a pass could reach hi
+  int hi = imin(n, kStage);
+  stage_fill(kind, bank, row, delta, dep, weak, 0, hi);
+  auto next_at = [&](int j) -> Next {
+    const int s = j & (kStage - 1);
+    return {sm.flags[s], sm.delta[s], sm.dep[s], sm.bank[s], sm.row[s]};
+  };
 
-  int q_t[SCAN_MAX_Q], q_idx[SCAN_MAX_Q];
-  bool q_vis[SCAN_MAX_Q];
-  int vals[REPRO_VM_MAX_L];
-  int env[REPRO_N_LOADS];
-  RespShadow sh;
-  sh.count = 0;
+  const unsigned long long all_free =
+      Q >= 64 ? ~0ull : (1ull << Q) - 1ull;
+  unsigned long long free_mask = all_free;
+  Lane qlo = {0, REPRO_BIG, 0, 0, 0, -1, 0, 0};
+  Lane qhi = qlo;
+  int m = kKeyPast;   // earliest t over the valid lanes
+  int ptr = 0, prev_ti = 0;
+  Next nx = next_at(0);
+  // the frontier failed at ptr and none of its inputs there (t_resp at
+  // stuck_w and stuck_d, a free lane if stuck_full) has changed since:
+  // it would fail again at once, so it is not run
+  bool stuck = false, stuck_full = false;
+  int stuck_w = -1, stuck_d = -1;
+  int bus_busy = 0, refs_done = 0, mc_release = 0, dram_now = 0;
+  int hits = 0, served = 0, smc = 0, last_bank = -1;
+  // dram_now // tREFI, kept with dram_now
+  int dram_refs = refi.div(dram_now);
 
-  for (int s = 0; s < p.slots; ++s) {
-    issue_frontier<false>(p, kind, delta, dep, ti, tr, queue, ptr, 4, sh);
-
-    const int cutoff = wadd(mc_release, vis_slack);
-    bool any_valid = false, do_serve = false;
-    int nxt = REPRO_BIG;
-    for (int q = 0; q < p.q; ++q) {
-      const bool valid = queue[q] >= 0;
-      const int qi = clampi(queue[q], 0, p.n - 1);
-      const int t = valid ? ti[qi] : REPRO_BIG;
-      q_idx[q] = qi;
-      q_t[q] = t;
-      q_vis[q] = valid && t <= cutoff;
-      any_valid = any_valid || valid;
-      do_serve = do_serve || q_vis[q];
-      nxt = imin(nxt, t);
+  // In-order issue of up to `upto` requests into free queue lanes
+  // (emulator.py _issue_frontier). A disabled advance leaves every input
+  // as it was, so the loop stops at the first one. The trailing pass
+  // keeps NOP responses in the ring only, see (b).
+  auto frontier = [&](int upto, bool trailing) {
+    if (hi < n && ptr + upto > hi) {
+      const int to = imin(n, hi + kStage / 2);
+      stage_fill(kind, bank, row, delta, dep, weak, hi, to);
+      hi = to;
+      nx = next_at(ptr);
     }
-    if (!do_serve) {
-      // idle hop to the next arrival, never on an empty queue
-      if (any_valid) mc_release = imax(mc_release, imin(nxt, REPRO_BIG - 1));
+    for (int u = 0; u < upto; ++u) {
+      const int j = ptr;
+      const int wj = wsub(j, p.window);
+      const int wi = wj >= 0 ? imin(wj, n - 1) : -1;
+      const int dj = wsub(j, nx.dep);
+      const int di = nx.dep > 0 && dj >= 0 ? dj : -1;
+      // both from the ring, but for a dependence more than kRing back
+      // (di < ptr always)
+      const int tw_ring = sm.ring[wi & (kRing - 1)];
+      const int tw = win_ok ? tw_ring : REPRO_BIG;
+      int td = sm.ring[di & (kRing - 1)];
+      if (di >= 0 && di < ptr - kRing) td = __ldcg(tr + di);
+      const bool is_nop = (nx.flags & kFNop) != 0;
+      if (!(j < n && (wi < 0 || tw < REPRO_BIG) &&
+            (di < 0 || td < REPRO_BIG) && (free_mask != 0 || is_nop))) {
+        stuck = true;
+        stuck_w = j < n ? wi : -1;
+        stuck_d = j < n ? di : -1;
+        stuck_full = j < n && free_mask == 0 && !is_nop;
+        return;
+      }
+      const int t_new = imax(imax(wadd(prev_ti, nx.delta),
+                                  wi >= 0 ? wadd(tw, 1) : 0),
+                             di >= 0 ? wadd(td, 1) : 0);
+      ti[j] = t_new;
+      sm.ring[j & (kRing - 1)] = is_nop ? t_new : REPRO_BIG;
+      if (is_nop && !trailing) tr[j] = t_new;
+      // a real request takes the first free lane (a NOP's bank may be
+      // anything: the index is masked, its state unused)
+      const int slot = __ffsll(static_cast<long long>(free_mask)) - 1;
+      const int bi = nx.bank & (SCAN_MAX_BANKS - 1);
+      const Lane in = {j, t_new, nx.bank, nx.row, nx.flags,
+                       sm.open[bi], sm.ready[bi], sm.act[bi]};
+      const bool mine = !is_nop && lane == (slot & 31);
+      qlo = select_lane(mine && slot < 32, in, qlo);
+      qhi = select_lane(mine && slot >= 32, in, qhi);
+      free_mask = is_nop ? free_mask : free_mask & (free_mask - 1);
+      m = is_nop ? m : imin(m, t_new);
+      prev_ti = t_new;
+      ++ptr;
+      nx = next_at(ptr);
+    }
+  };
+
+  const bool real_lo = lane < Q;
+  const bool real_hi = lane + 32 < Q;
+  const int past_lo = real_lo ? REPRO_BIG : kKeyPast;
+  const int past_hi = real_hi ? REPRO_BIG : kKeyPast;
+  for (int step = 0;; ++step) {
+    // after the last slot, the trailing frontier pass so post-memory
+    // compute counts (one copy of the frontier's code serves both)
+    const bool last = step >= p.slots;
+    if (!stuck || last) frontier(last ? 8 : 4, last);
+    if (last || (ptr >= n && free_mask == all_free)) break;  // drained: (c)
+
+    // a lane is visible iff valid with t <= cutoff: some lane is iff
+    // m <= cutoff, and m is then the earliest visible time
+    const int cutoff = wadd(mc_release, vis_slack);
+    if (free_mask == all_free || m > cutoff) {
+      // idle hop to the next arrival, never on an empty queue: the
+      // reference's min over lanes (BIG for free ones), clamped below BIG
+      if (free_mask != all_free)
+        mc_release = imax(mc_release, imin(m, REPRO_BIG - 1));
       continue;
     }
+    const bool val_lo = real_lo && !((free_mask >> lane) & 1ull);
+    const bool val_hi = real_hi && !((free_mask >> (lane + 32)) & 1ull);
+    const bool vis_lo = val_lo && qlo.t <= cutoff;
+    const bool vis_hi = val_hi && qhi.t <= cutoff;
+    // each lane's issue time in ticks and refresh count, for whichever
+    // lane wins (beside the decision's warp traffic, not after it)
+    const int conv_lo = mul_div(qlo.t, kFP, den);
+    const int conv_hi = mul_div(qhi.t, kFP, den);
+    const int refs_lo = refi.div(conv_lo);
+    const int refs_hi = refi.div(conv_hi);
 
     // ---- scheduling decision: two-level argmin over every lane's key
     // (BIG for invisible lanes), ties to the first lane
-    int qslot = 0;
+    int qslot;
     if (L > 0) {
-      int min_vis = REPRO_BIG, write_pressure = 0;
-      for (int q = 0; q < p.q; ++q) {
-        if (!q_vis[q]) continue;
-        min_vis = imin(min_vis, q_t[q]);
-        write_pressure += kind[q_idx[q]] == kWrite ? 1 : 0;
-      }
-      int best_all = 0, best_boost = 0, slot_boost = 0;
-      bool any_boost = false;
-      for (int q = 0; q < p.q; ++q) {
-        int key_all = REPRO_BIG, key_boost = REPRO_BIG;
-        if (q_vis[q]) {
-          const int qb = bank[q_idx[q]];
-          const int qr = row[q_idx[q]];
-          env[0] = q_t[q];                                 // age
-          env[1] = wsub(q_t[q], min_vis);                  // age_rel
-          env[2] = open_row[qb] == qr ? 1 : 0;             // row_hit
-          env[3] = qb;                                     // bank
-          env[4] = qr;                                     // row
-          env[5] = kind[q_idx[q]] == kWrite ? 1 : 0;       // is_write
-          env[6] = ready[qb] > dram_now ? 1 : 0;           // bank_busy
-          env[7] = floormod(wsub(wsub(qb, last_bank), 1), p.n_banks);  // rr_dist
-          env[8] = q;                                      // qslot
-          env[9] = write_pressure;                         // write_pressure
-          env[10] = 0;                                     // hammer_ct
-          env[11] = 0;                                     // para_rand
-          int score, boost, mit;
-          policy_vm_lane(s_table, L, env, vals, &score, &boost, &mit);
-          key_all = imin(score, REPRO_BIG - 1);
-          if (boost != 0) {
-            key_boost = key_all;
-            any_boost = true;
-          }
-        }
-        if (q == 0 || key_all < best_all) {
-          best_all = key_all;
-          qslot = q;
-        }
-        if (q == 0 || key_boost < best_boost) {
-          best_boost = key_boost;
-          slot_boost = q;
+      const int wp =
+          __popc(__ballot_sync(kFull, vis_lo && (qlo.flags & kFWrite))) +
+          __popc(__ballot_sync(kFull, vis_hi && (qhi.flags & kFWrite)));
+      int ka_lo = past_lo, ka_hi = past_hi, kb_lo = past_lo, kb_hi = past_hi;
+      bool boosted = false;
+      int score, boost;
+      if (vis_lo) {
+        const int2 sb = lane_policy(L, qlo, lane, m, wp, dram_now, last_bank,
+                                    nbanks);
+        score = sb.x;
+        boost = sb.y;
+        ka_lo = imin(score, REPRO_BIG - 1);
+        if (boost != 0) {
+          kb_lo = ka_lo;
+          boosted = true;
         }
       }
-      if (any_boost) qslot = slot_boost;
+      if (vis_hi) {
+        const int2 sb = lane_policy(L, qhi, lane + 32, m, wp, dram_now,
+                                    last_bank, nbanks);
+        score = sb.x;
+        boost = sb.y;
+        ka_hi = imin(score, REPRO_BIG - 1);
+        if (boost != 0) {
+          kb_hi = ka_hi;
+          boosted = true;
+        }
+      }
+      qslot = __ballot_sync(kFull, boosted) != 0 ? warp_argmin(kb_lo, kb_hi)
+                                                 : warp_argmin(ka_lo, ka_hi);
     } else {
-      int best_all = 0, best_hit = 0, slot_hit = 0;
-      bool any_hit = false;
-      for (int q = 0; q < p.q; ++q) {
-        int key_all = REPRO_BIG, key_hit = REPRO_BIG;
-        if (q_vis[q]) {
-          key_all = q_t[q];
-          if (open_row[bank[q_idx[q]]] == row[q_idx[q]]) {
-            key_hit = q_t[q];
-            any_hit = true;
-          }
-        }
-        if (q == 0 || key_all < best_all) {
-          best_all = key_all;
-          qslot = q;
-        }
-        if (q == 0 || key_hit < best_hit) {
-          best_hit = key_hit;
-          slot_hit = q;
-        }
+      const bool hit_lo = vis_lo && qlo.open == qlo.row;
+      const bool hit_hi = vis_hi && qhi.open == qhi.row;
+      const unsigned hits_lo = __ballot_sync(kFull, hit_lo);
+      const unsigned hits_hi = __ballot_sync(kFull, hit_hi);
+      const unsigned m_lo = __ballot_sync(kFull, vis_lo && qlo.t == m);
+      const unsigned m_hi = __ballot_sync(kFull, vis_hi && qhi.t == m);
+      const bool use_hit = p.frfcfs && (hits_lo | hits_hi) != 0;
+      // every visible key below BIG: the first lane holding m, or the
+      // only row hit; otherwise the general argmin
+      qslot = use_hit ? first_set(hits_lo, hits_hi) : first_set(m_lo, m_hi);
+      if (cutoff >= REPRO_BIG ||
+          (use_hit && __popc(hits_lo) + __popc(hits_hi) > 1)) {
+        const bool k_lo = use_hit ? hit_lo : vis_lo;
+        const bool k_hi = use_hit ? hit_hi : vis_hi;
+        qslot = warp_argmin(k_lo ? qlo.t : past_lo, k_hi ? qhi.t : past_hi);
       }
-      if (p.frfcfs && any_hit) qslot = slot_hit;
     }
-    const int pick = q_idx[qslot];
+    // ---- the picked request, from the lane that holds it
+    const int owner = qslot & 31;
+    const bool in_hi = qslot >= 32;
+#define REPRO_PICKED(f) __shfl_sync(kFull, in_hi ? qhi.f : qlo.f, owner)
+    int pick = REPRO_PICKED(idx);
+    int p_t = REPRO_PICKED(t);
+    int bk = REPRO_PICKED(bank);
+    int rw = REPRO_PICKED(row);
+    int fl = REPRO_PICKED(flags);
+    int o_row = REPRO_PICKED(open);
+    int b_ready = REPRO_PICKED(ready);
+    int b_act = REPRO_PICKED(act);
+    int p_conv = __shfl_sync(kFull, in_hi ? conv_hi : conv_lo, owner);
+    int p_refs = __shfl_sync(kFull, in_hi ? refs_hi : refs_lo, owner);
+#undef REPRO_PICKED
+    if ((free_mask >> qslot) & 1ull) {
+      // a free lane won: only when no visible key is below BIG (issue
+      // times past 2^30); the reference then serves request 0, the
+      // clamp of the free lane's -1
+      pick = 0;
+      p_t = __ldcg(ti);
+      bk = __ldg(bank);
+      rw = __ldg(row);
+      fl = request_flags(__ldg(kind), weak != nullptr && __ldg(weak) == 0);
+      o_row = sm.open[bk];
+      b_ready = sm.ready[bk];
+      b_act = sm.act[bk];
+      p_conv = mul_div(p_t, kFP, den);
+      p_refs = refi.div(p_conv);
+    }
 
-    // ---- DRAM service (dram.py service_request)
-    const int decision_t = imax(ti[pick], mc_release);
-    const int now = imax(dram_now, mul_div(decision_t, kFP, den));
-    const int trcd = (weak != nullptr && weak[pick] == 0) ? p.tRCD_reduced
-                                                         : p.tRCD;
-    const int kd = kind[pick];
-    const int bk = bank[pick];
-    const int rw = row[pick];
-    const int refs_due = imax(wsub(floordiv(now, p.tREFI), refs_done), 0);
-    const int start = wadd(imax(now, ready[bk]), wmul(refs_due, p.tRFC));
-    const bool is_rc = kd == kRcCopy || kd == kRcInit;
-    const bool is_hit = open_row[bk] == rw && !is_rc;
-    const bool is_closed = open_row[bk] < 0;
-    const int pre_at = imax(start, wadd(act_at[bk], p.tRAS));
+    // ---- DRAM service (dram.py service_request); the tick conversion
+    // of max(t, mc_release) is that of the larger one (after an idle hop
+    // mc_release is the picked t), and the refresh count that of the
+    // larger of it and dram_now
+    const bool from_t = p_t >= mc_release;
+    const int decision_t = from_t ? p_t : mc_release;
+    int conv = p_conv, conv_refs = p_refs;
+    if (!from_t) {
+      conv = mul_div(mc_release, kFP, den);
+      conv_refs = refi.div(conv);
+    }
+    const bool from_conv = conv >= dram_now;
+    const int now = from_conv ? conv : dram_now;
+    const int now_refs = from_conv ? conv_refs : dram_refs;
+    const int refs_due = imax(wsub(now_refs, refs_done), 0);
+    const int trcd = (fl & kFWeak0) ? p.tRCD_reduced : p.tRCD;
+    const int start = wadd(imax(now, b_ready), wmul(refs_due, p.tRFC));
+    const bool is_rc = (fl & kFRc) != 0;
+    const bool is_hit = o_row == rw && !is_rc;
+    const bool is_closed = o_row < 0;
+    const int pre_at = imax(start, wadd(b_act, p.tRAS));
     const int act_start = is_closed ? start : wadd(pre_at, p.tRP);
     const int col_start = is_hit ? start : wadd(act_start, trcd);
     const int data_start = imax(wadd(col_start, p.tCL), bus_busy);
@@ -296,42 +539,68 @@ __global__ void slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     const int rc_done = wadd(act_start, p.tRC_CLONE);
     const int t_done = is_rc ? rc_done : data_done;
     const int bank_next =
-        is_rc ? rc_done : (kd == kWrite ? wadd(data_done, p.tWR) : data_done);
-    if (!is_hit) act_at[bk] = act_start;
-    open_row[bk] = rw;
-    ready[bk] = bank_next;
-    if (!is_rc) bus_busy = data_done;
+        is_rc ? rc_done
+              : ((fl & kFWrite) ? wadd(data_done, p.tWR) : data_done);
+    const int act_next = is_hit ? b_act : act_start;
+    sm.open[bk] = rw;
+    sm.ready[bk] = bank_next;
+    sm.act[bk] = act_next;
+    // every lane holding a request to bank bk sees its new state
+    if (qlo.bank == bk) {
+      qlo.open = rw;
+      qlo.ready = bank_next;
+      qlo.act = act_next;
+    }
+    if (qhi.bank == bk) {
+      qhi.open = rw;
+      qhi.ready = bank_next;
+      qhi.act = act_next;
+    }
+    bus_busy = is_rc ? bus_busy : data_done;
     refs_done = wadd(refs_done, refs_due);
 
     // ---- time scaling: response consume-tag in modeled proc cycles
-    const int resp_t = imax(wadd(mul_div(t_done, p.scale_num, kFP), p.mc_lat),
+    const int resp_t = imax(wadd(mul_div_fp(t_done, p.scale_num), p.mc_lat),
                             wadd(decision_t, mc_issue));
     tr[pick] = resp_t;
-    queue[qslot] = -1;
+    if (pick < ptr && pick >= ptr - kRing) sm.ring[pick & (kRing - 1)] = resp_t;
+    // the service changed t_resp[pick] and freed a lane
+    stuck = stuck && !(pick == stuck_w || pick == stuck_d || stuck_full);
+    free_mask |= 1ull << qslot;
+    {
+      const bool v_lo = real_lo && !((free_mask >> lane) & 1ull);
+      const bool v_hi = real_hi && !((free_mask >> (lane + 32)) & 1ull);
+      m = __reduce_min_sync(kFull, imin(v_lo ? qlo.t : kKeyPast,
+                                        v_hi ? qhi.t : kKeyPast));
+    }
     mc_release = imax(mc_release, wadd(decision_t, mc_issue));
-    dram_now = imax(dram_now, now);
+    dram_now = now;   // now >= dram_now
+    dram_refs = now_refs;
     hits += is_hit ? 1 : 0;
     served += 1;
     smc = wadd(smc, counter_inc);
     last_bank = bk;
   }
 
-  // trailing frontier pass so post-memory compute counts
-  issue_frontier<true>(p, kind, delta, dep, ti, tr, queue, ptr, 8, sh);
-
+  __syncwarp();
   int last_resp = 0, last_issue = 0;
-  for (int i = 0; i < p.n; ++i) {
-    if (kind[i] == kNop) continue;
-    const int r = tr[i];
+#pragma unroll 4
+  for (int i = lane; i < n; i += 32) {
+    if (__ldg(kind + i) == kNop) continue;
+    const int r = __ldcg(tr + i);
     if (r < REPRO_BIG) last_resp = imax(last_resp, r);
-    last_issue = imax(last_issue, ti[i]);
+    last_issue = imax(last_issue, __ldcg(ti + i));
   }
-  int* st = stats + 5 * b;
-  st[0] = imax(last_resp, last_issue);
-  st[1] = hits;
-  st[2] = served;
-  st[3] = dram_now;
-  st[4] = smc;
+  last_resp = __reduce_max_sync(kFull, last_resp);
+  last_issue = __reduce_max_sync(kFull, last_issue);
+  if (lane == 0) {
+    int* st = stats + 5 * b;
+    st[0] = imax(last_resp, last_issue);
+    st[1] = hits;
+    st[2] = served;
+    st[3] = dram_now;
+    st[4] = smc;
+  }
 }
 
 }  // namespace
@@ -348,10 +617,7 @@ extern "C" int slot_scan_launch(const int* params, const void* kind,
   int* dst = reinterpret_cast<int*>(&p);
   for (int i = 0; i < kNumParams; ++i) dst[i] = params[i];
   if (p.batch <= 0) return 0;
-  const size_t smem =
-      p.table_len > 0 ? static_cast<size_t>(p.table_len + 1) * 4 * sizeof(int)
-                      : 0;
-  slot_scan_kernel<<<p.batch, 1, smem, static_cast<cudaStream_t>(stream)>>>(
+  slot_scan_kernel<<<p.batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int*>(kind), static_cast<const int*>(bank),
       static_cast<const int*>(row), static_cast<const int*>(delta),
       static_cast<const int*>(dep), static_cast<const int8_t*>(weak),

@@ -1,12 +1,13 @@
 """The slot-scan kernel's host side: its parameter block and CUDA wrapper.
 
 The kernel (``csrc/slot_scan.cu``) runs one trace row of a batch group
-through the whole slot budget in one thread, in place of the reference
-engine's ``lax.scan`` over its slot body. :class:`ScanParams` holds the
-group's host-computed scalars (computed in Python ints and floats
-exactly as the reference does, never in device float); its field order
-is the kernel's ``ScanParams`` struct. The plain version is
-``repro_torch.kernels.ref.slot_scan_ref``.
+through the whole slot budget in one warp (one block of 32 threads per
+row, queue lanes across the warp, the row's state in shared memory), in
+place of the reference engine's ``lax.scan`` over its slot body.
+:class:`ScanParams` holds the group's host-computed scalars (computed in
+Python ints and floats exactly as the reference does, never in device
+float); its field order is the kernel's ``ScanParams`` struct. The plain
+version is ``repro_torch.kernels.ref.slot_scan_ref``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 MAX_Q = 64        # SCAN_MAX_Q in slot_scan.cu
 MAX_BANKS = 64    # SCAN_MAX_BANKS
 MAX_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
+RESP_RING = 1024  # SCAN_RESP_RING: t_resp of the latest requests kept on chip
 
 STAT_FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
                "smc_fpga_cycles")
@@ -76,12 +78,14 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     dev = kind.device
     if dev.type != "cuda":
         raise ValueError(f"slot_scan_cuda needs CUDA tensors, got {dev}")
-    if not 2 <= p.q <= MAX_Q or p.n_banks > MAX_BANKS \
-            or p.table_len > MAX_TABLE:
+    if not 2 <= p.q <= MAX_Q or p.window > p.q \
+            or not 1 <= p.n_banks <= MAX_BANKS or p.table_len > MAX_TABLE \
+            or p.tREFI < 1:
         raise ValueError(
-            f"slot_scan kernel limits: queue 2..{MAX_Q} (got {p.q}), banks "
-            f"<= {MAX_BANKS} (got {p.n_banks}), table <= {MAX_TABLE} (got "
-            f"{p.table_len})")
+            f"slot_scan kernel limits: queue 2..{MAX_Q} (got {p.q}), window "
+            f"<= queue (got {p.window}), banks 1..{MAX_BANKS} (got "
+            f"{p.n_banks}), table <= {MAX_TABLE} (got {p.table_len}), tREFI "
+            f">= 1 (got {p.tREFI})")
     shape = (p.batch, p.n)
     for nm, t in (("kind", kind), ("bank", bank), ("row", row),
                   ("delta", delta), ("dep", dep)):

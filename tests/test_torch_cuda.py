@@ -16,7 +16,9 @@ from repro_torch.core.bloom import BloomFilter, words_tensor
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
-from repro_torch.kernels.slot_scan import ScanParams
+from repro_torch.kernels.slot_scan import (MAX_BANKS, MAX_Q, MAX_TABLE,
+                                           RESP_RING, ScanParams,
+                                           slot_scan_cuda)
 
 BLOOM_GRID = [(1 << 14, 2, 100), (1 << 16, 4, 5000), (1 << 18, 6, 20000)]
 
@@ -73,31 +75,100 @@ def test_policy_vm_kernel_matches_plain(cuda_device, bucket):
     assert torch.equal(ops.policy_vm(t, e), ref.policy_vm_ref(t, e))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["legacy", "table-and-weak"])
-def test_slot_scan_kernel_matches_plain(cuda_device, variant):
+# Each case varies the base group (4 rows x 64 requests, window 4, 16
+# banks, FR-FCFS, 200 slots) where the warp kernel's design could break
+# exactness: a 2-lane, a 4-lane and a 64-lane queue (two lanes per
+# thread); 64 banks; traces longer than the on-chip t_resp ring with
+# dependences reaching past it (served from global memory); an all-NOP
+# filler row; rows that drain long before a surplus slot budget ends;
+# a budget that ends mid-trace (the trailing pass resolves NOPs whose
+# t_resp later advances read); divisors off the defaults (frequent
+# refreshes, a time-scaling denominator below 4096); the largest policy
+# table.
+SCAN_CASES = {
+    "legacy": {},
+    "table-and-weak": {"table": 8, "weak": True, "nots": 1},
+    "window1-q2": {"window": 1},
+    "window64-q64": {"window": 64, "n": 256, "slots": 600},
+    "window64-table": {"window": 64, "n": 256, "slots": 600, "table": 8,
+                       "weak": True, "nots": 1},
+    "banks64": {"banks": 64},
+    "ring-and-far-deps": {"B": 2, "n": RESP_RING + 512, "far_deps": True,
+                          "slots": 2 * (RESP_RING + 512) + 8},
+    "nop-filler-row": {"nop_rows": (1,)},
+    "drain-early": {"real": 8, "slots": 1000},
+    "budget-ends-mid-trace": {"slots": 40},
+    "odd-divisors": {"params": {"tREFI": 97, "scale_num": 3001,
+                                "tRFC": 41}},
+    "table256": {"B": 2, "n": 32, "slots": 80, "table": 256, "nots": 1},
+}
+
+
+def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
+              weak=False, nots=0, far_deps=False, nop_rows=(), real=None,
+              params=None):
+    """Seeded inputs of one slot-scan group; the queue has
+    ``max(window, 2)`` lanes, as the engine sizes it."""
     rng = np.random.RandomState(0)
-    B, n = 4, 64
-    arrs = [rng.randint(0, 5, (B, n)), rng.randint(0, 16, (B, n)),
-            rng.randint(0, 64, (B, n)), rng.randint(0, 24, (B, n)),
-            rng.randint(0, 3, (B, n))]
-    args = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
-            for a in arrs]
-    costs = torch.tensor([[520, 260]] * B, dtype=torch.int32,
-                         device=cuda_device)
-    p = scan_params(B, n)
-    weak = tables = None
-    if variant != "legacy":
-        weak = torch.from_numpy(rng.randint(0, 2, (B, n)).astype(
-            np.int8)).to(cuda_device)
-        progs = list(smcprog.builtin_programs().values())[:B]
-        tables = torch.from_numpy(smcprog.pack_stack(progs, 8)).to(
-            cuda_device)
-        p = dataclasses.replace(p, nots=1, table_len=8, use_weak=1)
+    kind, bank, row, delta, dep = (
+        rng.randint(0, 5, (B, n)), rng.randint(0, banks, (B, n)),
+        rng.randint(0, 64, (B, n)), rng.randint(0, 24, (B, n)),
+        rng.randint(0, 3, (B, n)))
+    if far_deps:   # some requests wait on one issued more than a ring ago
+        far = rng.random_sample((B, n)) < 0.1
+        dep[far] = rng.randint(RESP_RING + 1, RESP_RING + 256, int(far.sum()))
+    if real is not None:   # row 0: `real` requests, then NOP padding
+        kind[0, real:] = 4
+    for r in nop_rows:
+        kind[r] = 4
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (kind, bank, row, delta, dep)]
+    costs = torch.tensor([[520, 260]] * B, dtype=torch.int32, device=dev)
+    p = dataclasses.replace(scan_params(B, n), window=window,
+                            q=max(window, 2), n_banks=banks, slots=slots,
+                            nots=nots, **(params or {}))
+    w = tables = None
+    if weak:
+        w = torch.from_numpy(rng.randint(0, 2, (B, n)).astype(np.int8)).to(dev)
+        p = dataclasses.replace(p, use_weak=1)
+    if table:
+        progs = list(smcprog.builtin_programs().values())
+        progs = [progs[i % len(progs)] for i in range(B)]
+        tables = torch.from_numpy(smcprog.pack_stack(progs, table)).to(dev)
+        p = dataclasses.replace(p, table_len=table)
+    return args, w, tables, costs, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(SCAN_CASES))
+def test_slot_scan_kernel_matches_plain(cuda_device, variant):
+    args, weak, tables, costs, p = scan_case(cuda_device, **SCAN_CASES[variant])
+    ops.reset_launches()
     got = ops.slot_scan(*args, weak, tables, costs, p)
-    want = ref.slot_scan_ref(*args, weak, tables, costs, p)
+    torch.cuda.synchronize()
+    assert ops.launches()["slot_scan"] == 1
+    # the plain version on CPU copies of the same inputs (it is launch-bound
+    # on the card)
+    cpu = [None if t is None else t.cpu()
+           for t in (*args, weak, tables, costs)]
+    want = ref.slot_scan_ref(*cpu, p)
     for f in want:
-        assert torch.equal(got[f], want[f]), f
+        assert torch.equal(got[f].cpu(), want[f]), f
+    if variant == "drain-early":   # the budget outlasts every row
+        assert int(want["served"].sum()) == int((args[0] != 4).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("q", 1), ("q", MAX_Q + 1),
+                                         ("n_banks", 0),
+                                         ("n_banks", MAX_BANKS + 1),
+                                         ("table_len", MAX_TABLE + 1),
+                                         ("tREFI", 0), ("window", 5)])
+def test_slot_scan_cuda_refuses_past_its_limits(cuda_device, field, value):
+    args, weak, tables, costs, p = scan_case(cuda_device)
+    with pytest.raises(ValueError, match="slot_scan kernel limits"):
+        slot_scan_cuda(*args, weak, tables, costs,
+                       dataclasses.replace(p, **{field: value}))
 
 
 # the grid and tolerances of tests/test_kernels.py: the kernel sums in
@@ -157,8 +228,16 @@ def test_flash_attention_cuda_refusals(cuda_device):
         flash_attention_cuda(torch.zeros((4, 128, 64)), kv, kv, causal=True)
 
 
+# the reference copy grid, the fork's shape class (36 rows written 4 row
+# sizes apart, each row larger than one block's 32 KB chunk) and a large
+# ragged copy (16-byte units and a tail when contiguous, the byte path
+# into strided rows)
+ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192), (36, 65664),
+                   (3, 300007)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128), (64, 512), (33, 257), (1, 8192)])
+@pytest.mark.parametrize("shape", ROWCLONE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_rowclone_copy_kernel_matches_plain(cuda_device, shape, dtype):
     x = torch.arange(int(np.prod(shape)), device=cuda_device).reshape(
@@ -166,9 +245,9 @@ def test_rowclone_copy_kernel_matches_plain(cuda_device, shape, dtype):
     ops.reset_launches()
     got = ops.rowclone_copy(x)
     assert torch.equal(got, ref.rowclone_copy_ref(x))
-    # into slot 1 of a [R, 3, C] tensor (strided rows), and from an
-    # unaligned base (a view one element in)
-    wide = torch.zeros((shape[0], 3, shape[1]), dtype=dtype,
+    # into slot 1 of a [R, 4, C] tensor (strided rows, as the 4-way fork
+    # writes them), and from an unaligned base (a view one element in)
+    wide = torch.zeros((shape[0], 4, shape[1]), dtype=dtype,
                        device=cuda_device)
     want = torch.zeros_like(wide)
     ops.rowclone_copy(x, out=wide[:, 1])

@@ -14,6 +14,13 @@ Phases, one line each:
    seeded random tables, env values that overflow int32);
 4. ``slot_scan`` kernel (with ``bloom_probe``) against the plain engine
    on the card, through the engine's entry points, at reduced length;
+4b. the shapes past ``slot_scan``'s fast instantiation (queues 65, 100,
+   1016 and 1100, banks 65, 128 and 4096, policy tables 512 and 1024)
+   through ``run`` / ``run_policies`` with the default device, the
+   launch counters reset just before: every group runs in the wide
+   instantiation and equals the plain engine (CPU worker processes) on
+   all seven fields; the batch ``policy_vm`` at a 512-row table against
+   its plain version;
 5. the main path at full size with the launch counters reset just before
    it: the tRCD case study over twelve PolyBench kernels (base and
    reduced arms, ``ts`` and ``reference`` in one batch), the RowClone
@@ -44,7 +51,9 @@ Phases, one line each:
 12. each LM kernel's time at the serving path's shapes beside its plain
    version's, its bound and the PyTorch call that computes the same
    function (``scaled_dot_product_attention``, ``clone``), which the port
-   itself never calls (``rowclone_copy`` and ``clone`` timed in turns).
+   itself never calls (``rowclone_copy`` and ``clone`` timed in turns);
+   flash's bound is its 3xTF32 tensor-core bound, printed beside the fp32
+   SIMT bound.
 
 Device ms per launch comes from a profiled window of back-to-back calls
 at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
@@ -77,6 +86,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 DEVICE_WINDOW_MS = 20.0       # least span of a profiled window (device_ms)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 rate (data sheet)
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate (data sheet)
 REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe.py:21",
     "policy_vm": "src/repro/kernels/policy_vm.py:31",
@@ -92,7 +102,18 @@ PATH_KERNELS = ("bloom_probe", "slot_scan")   # launched by the entry points
 N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
 SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
 PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
-MAX_WORKERS = 8           # CPU worker processes of phase 7
+MAX_WORKERS = 8           # CPU worker processes of phases 4b and 7
+# phase 4b: (window or None for the default, banks, ops of a long policy
+# program or 0, requests, dependences drawn below this); no dependences
+# where the queue is to fill up to its window
+WIDE_SHAPES = {"q65": (65, 16, 0, 200, 1), "q100": (100, 16, 0, 200, 3),
+               "q1016": (1016, 16, 0, 1300, 1),
+               "q1100": (1100, 16, 0, 1300, 1),
+               "banks65": (None, 65, 0, 200, 3),
+               "banks128": (None, 128, 0, 200, 3),
+               "banks4096": (None, 4096, 0, 200, 3),
+               "table512": (None, 16, 300, 40, 3),
+               "table1024": (None, 16, 600, 24, 3)}
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
 LM_BATCH, LM_PROMPT, LM_NEW, FORK_N = 4, 1024, 16, 4
@@ -253,6 +274,17 @@ def random_table(rng, max_ops, name, smcprog):
                                  name=name).validate()
 
 
+def long_program(smcprog, n_ops, name="long"):
+    """A fault-free program of at most ``n_ops`` ops whose score chains
+    age, age_rel and constants through every row, with a row-hit boost."""
+    b = smcprog.PolicyBuilder()
+    v = b.score_age()
+    hit = b.score_row_hit()
+    for _ in range((n_ops - 2) // 4):
+        v = b.add(v, b.min_(b.age_rel(), b.const(7)))
+    return b.build(score=v, boost=hit, name=name)
+
+
 def same_results(a, b, label):
     for ra, rb in zip(a, b):
         for f in FIELDS:
@@ -376,6 +408,87 @@ def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
         f"{sum(b for _, b in times.values()):.2f} s; "
         f"{time.perf_counter() - t0:.1f} s")
     return times
+
+
+def phase_wide(np, torch, ops, ref, emu, smcprog, timescale, vm_env, dev):
+    """The shapes past ``slot_scan``'s fast instantiation, which the card
+    refused before this slice, through the engine's entry points with the
+    default device; every group against the plain engine on all seven
+    fields (CPU worker processes); the batch ``policy_vm`` at a 512-row
+    table. Returns the launches, the instantiations and a detail dict."""
+    from repro_torch.kernels.slot_scan import instantiation
+    jn = timescale.JETSON_NANO
+    cases = []
+    for i, (name, (window, banks, n_ops, n, dep_max)) in enumerate(
+            WIDE_SHAPES.items()):
+        sys_ = dataclasses.replace(
+            jn, window=window or jn.window,
+            geometry=dataclasses.replace(jn.geometry, n_banks=banks))
+        rng = np.random.RandomState(i)
+        tr = emu.Trace.of(rng.randint(0, 5, n), rng.randint(0, banks, n),
+                          rng.randint(0, 64, n), rng.randint(0, 6, n),
+                          rng.randint(0, dep_max, n))
+        progs = [long_program(smcprog, n_ops)] if n_ops else None
+        cases.append((name, sys_, tr, progs))
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec.record()
+    t0 = time.perf_counter()
+    for name, sys_, tr, progs in cases:
+        rec.tag = name
+        if progs:
+            emu.run_policies(tr, sys_, progs, mode="nots")
+        else:
+            for mode in ("ts", "nots"):
+                emu.run(tr, sys_, mode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = ops.launches(), ops.variants()
+    rec.restore()
+    groups = rec.groups
+    check(counts["slot_scan"] == len(groups) == sum(variants.values())
+          and all(k.startswith("slot_scan/wide") for k in variants),
+          f"phase 4b: {len(groups)} groups, launches {counts}, "
+          f"instantiations {variants}")
+    kern = rec.orig["slot_scan"]
+    timed = []
+    for g in groups:
+        p = g["args"][-1]
+        ms = cuda_ms(lambda: kern(*g["args"]), reps=2)
+        timed.append({"tag": g["tag"], "instantiation": instantiation(p),
+                      "batch": p.batch, "n": p.n, "q": p.q,
+                      "banks": p.n_banks, "table": p.table_len,
+                      "slots": p.slots, "ms": ms,
+                      "ns_per_slot": ms * 1e6 / p.slots})
+    jobs = [(g["tag"], True, g["args"][-1], g["args"][:-1], g["out"])
+            for g in groups]
+    err, plain = compare_plain(np, jobs)
+
+    tables = torch.from_numpy(smcprog.pack_stack(
+        [long_program(smcprog, 509)] + list(
+            smcprog.builtin_programs().values()), 512)).to(dev)
+    ops.reset_launches()
+    got = ops.policy_vm(tables, vm_env)
+    torch.cuda.synchronize()
+    vm_variant = ops.variants()
+    vm_err = float((got - ref.policy_vm_ref(tables, vm_env)).abs().max())
+    check(vm_err == 0, f"policy_vm != plain at a 512-row table ({vm_err})")
+    vm_ms = cuda_ms(lambda: ops.policy_vm(tables, vm_env), reps=5)
+    say(f"phase 4b wide shapes: slot_scan == plain engine on all 7 fields "
+        f"for {len(cases)} shapes ({', '.join(WIDE_SHAPES)}) in "
+        f"{len(groups)} groups, launches {counts['slot_scan']} "
+        f"{variants}, {wall:.2f} s; kernel ns per slot "
+        + ", ".join(f"{t['tag']} {t['ns_per_slot']:.0f}" for t in timed)
+        + f"; plain engine {plain['plain_cpu_s']:.1f} CPU-s in "
+        f"{plain['workers']} processes; policy_vm exact at "
+        f"{list(tables.shape)} x {vm_env.shape[1]} lanes {vm_variant} "
+        f"{vm_ms:.4f} ms")
+    return {"launches": counts["slot_scan"], "instantiations": variants,
+            "wall_s": wall, "groups": timed, "plain": plain,
+            "max_abs_err": err, "policy_vm_512": {
+                "shape": list(tables.shape), "lanes": vm_env.shape[1],
+                "instantiation": vm_variant, "ms": vm_ms}}
 
 
 def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
@@ -620,8 +733,6 @@ def phase_plain_groups(np, rec, slower_buckets):
     ``PLAIN_SLOT_LIMIT`` slots, the kernel relaunched with that budget.
     The ts / reference groups are left out: their rows repeat the tRCD
     reduced arm's inputs, and phase 5 holds ts == reference exactly."""
-    names = ("kind", "bank", "row", "delta", "dep", "weak", "tables",
-             "costs")
     jobs = []
     for g in rec.groups:
         if g["tag"] == "ts-reference":
@@ -634,9 +745,28 @@ def phase_plain_groups(np, rec, slower_buckets):
             p = dataclasses.replace(p, slots=PLAIN_SLOT_LIMIT)
             got = {f: v.cpu().numpy()
                    for f, v in rec.orig["slot_scan"](*args, p).items()}
-        arrays = {n: None if a is None else a.cpu().numpy()
-                  for n, a in zip(names, args)}
-        jobs.append((g["tag"], whole, p, arrays, got))
+        jobs.append((g["tag"], whole, p, args, got))
+    err, detail = compare_plain(np, jobs)
+    say(f"phase 7 slot_scan == plain engine on all 7 fields over "
+        f"{detail['groups']} main-path groups "
+        f"({', '.join(sorted({j[0] for j in jobs}))}): {detail['whole']} "
+        f"whole, {detail['groups'] - detail['whole']} over their first "
+        f"{PLAIN_SLOT_LIMIT} slots; {detail['slots']} slots, plain engine "
+        f"{detail['plain_cpu_s']:.1f} CPU-s in {detail['workers']} "
+        f"processes, {detail['wall_s']:.1f} s")
+    return err, detail
+
+
+def compare_plain(np, jobs):
+    """Each job ``(tag, whole, params, input tensors, kernel outputs)``
+    through the plain engine on the CPU, one group per worker process,
+    held on all seven fields; returns the largest difference (0) and a
+    detail dict."""
+    names = ("kind", "bank", "row", "delta", "dep", "weak", "tables",
+             "costs")
+    jobs = [(tag, whole, p, {n: None if a is None else a.cpu().numpy()
+                             for n, a in zip(names, args)}, got)
+            for tag, whole, p, args, got in jobs]
     # longest first: the plain engine's cost is per slot, x2.5 with a table
     jobs.sort(key=lambda j: -j[2].slots * (5 if j[2].table_len else 2))
     workers = min(len(jobs), len(os.sched_getaffinity(0)), MAX_WORKERS)
@@ -655,17 +785,11 @@ def phase_plain_groups(np, rec, slower_buckets):
             err = max(err, e)
             check(e == 0, f"slot_scan != plain engine on {f} in a {tag} "
                           f"group ({p.batch} x {p.n}, {p.slots} slots)")
-    n_whole = sum(j[1] for j in jobs)
     slots = sum(j[2].slots for j in jobs)
     cpu_s = sum(s for _, s in results)
-    tags = sorted({j[0] for j in jobs})
-    say(f"phase 7 slot_scan == plain engine on all 7 fields over {len(jobs)} "
-        f"main-path groups ({', '.join(tags)}): {n_whole} whole, "
-        f"{len(jobs) - n_whole} over their first {PLAIN_SLOT_LIMIT} slots; "
-        f"{slots} slots, plain engine {cpu_s:.1f} CPU-s in {workers} "
-        f"processes, {wall:.1f} s")
-    return err, {"groups": len(jobs), "whole": n_whole, "slots": slots,
-                 "plain_cpu_s": cpu_s, "workers": workers, "wall_s": wall,
+    return err, {"groups": len(jobs), "whole": sum(j[1] for j in jobs),
+                 "slots": slots, "plain_cpu_s": cpu_s, "workers": workers,
+                 "wall_s": wall,
                  "plain_ms_per_slot": cpu_s * 1e3 / max(slots, 1)}
 
 
@@ -1018,7 +1142,14 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
     nbytes = 2 * q.numel() * q.element_size() \
         + (k.numel() + v.numel()) * k.element_size()
     nops = (2 if causal else 4) * BH * S * k.shape[1] * hd
-    bms, bby = bound_ms(nbytes, nops)
+    # the kernel runs each product as 3xTF32 on the tensor cores (two
+    # products for bf16 K / V); the fp32 SIMT bound is printed beside it
+    products = 3 if k.dtype == torch.float32 else 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * nops / TF32_OPS_PER_S * 1e3
+    bms, bby = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+    simt_ms, _ = bound_ms(nbytes, nops)
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCES["flash_attention"],
@@ -1033,6 +1164,9 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
         **device_fields(lambda: kern(q, k, v, causal),
                         "flash_attention_kernel"),
         "library_max_abs_err": lib_err,
+        "bound": f"{products}xTF32 tensor-core operations at "
+                 f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s",
+        "bound_fp32_simt_ms": simt_ms,
         "shape": f"q {list(q.shape)}, k/v {list(k.shape)} {q.dtype}, "
                  f"causal={causal} (one prefill layer)",
         "flops": nops})
@@ -1070,7 +1204,9 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
         f"{k['name']} {k['launches']} launches, {k['ms']:.4f} ms per call, "
         f"device {k['device_ms']} ms (plain {k['plain_ms']:.4f} ms, library "
         f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
-        f"{k['bound_by']})" for k in out))
+        f"{k['bound_by']}"
+        + (f", fp32 SIMT bound {k['bound_fp32_simt_ms']:.4f} ms"
+           if "bound_fp32_simt_ms" in k else "") + ")" for k in out))
     return out
 
 
@@ -1116,6 +1252,8 @@ def main(argv=None):
         vm_args = phase_policy(torch, np, ops, ref, dev, smcprog)
         report["scan_check_s"] = phase_scan(
             np, rec, emu, techniques, timescale, traces, smcprog, geo, dev)
+        report["wide"] = phase_wide(np, torch, ops, ref, emu, smcprog,
+                                    timescale, vm_args[1], dev)
         counts, report["main"], slower_buckets = phase_main(
             np, torch, ops, rec, emu, techniques, timescale, traces, campaign,
             smcprog, geo, dev)

@@ -8,6 +8,8 @@
 #include <cstdint>
 
 #define REPRO_BIG (1 << 30)
+// dynamic shared memory one block may opt into on the H100 (227 KB)
+#define REPRO_MAX_DYN_SMEM 232448
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));

@@ -14,6 +14,8 @@
 #include "common.cuh"
 
 #define REPRO_N_LOADS 12
+// the longest table whose VM scratch is a local array (longer tables
+// take the kernels' wide instantiations)
 #define REPRO_VM_MAX_L 256
 
 namespace repro_vm {
@@ -25,20 +27,23 @@ enum : int {
 }  // namespace repro_vm
 
 // table: (L + 1) * 4 ints; env: REPRO_N_LOADS ints of this lane;
-// vals: scratch of L ints. Writes the lane's score, boost and mitigate.
+// vals: scratch of L ints, value i at vals[i * vstride] (a local array for
+// L <= REPRO_VM_MAX_L; shared or global memory interleaved across threads
+// for longer tables). Writes the lane's score, boost and mitigate.
 __device__ __forceinline__ void policy_vm_lane(const int* table, int L,
                                                const int* env, int* vals,
                                                int* score, int* boost,
-                                               int* mitigate) {
+                                               int* mitigate,
+                                               int vstride = 1) {
   using namespace repro_vm;
-  for (int i = 0; i < L; ++i) vals[i] = 0;
+  for (int i = 0; i < L; ++i) vals[i * vstride] = 0;
   for (int i = 0; i < L; ++i) {
     const int* r = table + 4 * (i + 1);
     const int op = r[0];
     const int imm = r[3];
-    const int va = vals[clampi(r[1], 0, L - 1)];
-    const int vb = vals[clampi(r[2], 0, L - 1)];
-    const int vc = vals[clampi(imm, 0, L - 1)];
+    const int va = vals[clampi(r[1], 0, L - 1) * vstride];
+    const int vb = vals[clampi(r[2], 0, L - 1) * vstride];
+    const int vc = vals[clampi(imm, 0, L - 1) * vstride];
     int v = imm;
     if (op >= kOpAge && op <= kOpParaRand) v = env[op - kOpAge];
     switch (op) {
@@ -56,11 +61,11 @@ __device__ __forceinline__ void policy_vm_lane(const int* table, int L,
       case kOpSelect: v = va != 0 ? vb : vc; break;
       default: break;
     }
-    vals[i] = v;
+    vals[i * vstride] = v;
   }
   const int hb = table[2];
   const int hm = table[3];
-  *score = vals[clampi(table[1], 0, L - 1)];
-  *boost = hb >= 0 ? vals[clampi(hb, 0, L - 1)] : 0;
-  *mitigate = hm >= 0 ? vals[clampi(hm, 0, L - 1)] : 0;
+  *score = vals[clampi(table[1], 0, L - 1) * vstride];
+  *boost = hb >= 0 ? vals[clampi(hb, 0, L - 1) * vstride] : 0;
+  *mitigate = hm >= 0 ? vals[clampi(hm, 0, L - 1) * vstride] : 0;
 }

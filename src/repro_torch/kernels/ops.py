@@ -13,7 +13,8 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 sources compile in parallel; the library is keyed by the sources'
 content, under ``build/repro_torch`` at the repository root. Each CUDA
 wrapper adds one to its launch counter (:func:`launches`) right after
-its kernel launched, and nowhere else.
+its kernel launched, and nowhere else; a kernel with more than one
+instantiation also counts which one ran (:func:`variants`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 MAX_KV_KERNEL = 8192   # attn_apply sends longer key sequences to plain attention
 _LAUNCHES = {name: 0 for name in KERNELS}
+_VARIANTS: dict = {}
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -58,16 +60,27 @@ def launches() -> dict:
     return dict(_LAUNCHES)
 
 
+def variants() -> dict:
+    """Launches by ``"kernel/instantiation"`` since the last
+    :func:`reset_launches` (kernels with one instantiation are absent)."""
+    return dict(_VARIANTS)
+
+
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _VARIANTS.clear()
 
 
-def check_launch(name: str, err: int) -> None:
-    """Raise on a refused launch (``cudaGetLastError`` != 0), else count it."""
+def check_launch(name: str, err: int, variant: Optional[str] = None) -> None:
+    """Raise on a refused launch (``cudaGetLastError`` != 0), else count
+    it, under ``variant`` too when the kernel has several."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     _LAUNCHES[name] += 1
+    if variant is not None:
+        key = f"{name}/{variant}"
+        _VARIANTS[key] = _VARIANTS.get(key, 0) + 1
 
 
 def ptr(t: Optional[torch.Tensor]):
@@ -148,15 +161,24 @@ def library() -> ctypes.CDLL:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.bloom_probe_launch.argtypes = [vp, i, i, vp, vp, i, i, i, i,
                                                vp]
+            ll = ctypes.c_longlong
             lib.policy_vm_launch.argtypes = [vp, i, i, vp, i, vp, vp]
+            lib.policy_vm_wide_launch.argtypes = [vp, i, i, vp, i, vp, vp,
+                                                  vp]
+            lib.policy_vm_wide_scratch_ints.argtypes = [i, i]
+            lib.policy_vm_wide_scratch_ints.restype = ll
             lib.slot_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 12
+            lib.slot_scan_wide_launch.argtypes = [ctypes.POINTER(i)] \
+                + [vp] * 13
+            lib.slot_scan_wide_scratch_ints.argtypes = [ctypes.POINTER(i)]
+            lib.slot_scan_wide_scratch_ints.restype = ll
             lib.slot_scan_num_params.argtypes = []
             lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 7 + [
                 ctypes.c_float, vp]
-            ll = ctypes.c_longlong
             lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
             for fn in (lib.bloom_probe_launch, lib.policy_vm_launch,
-                       lib.slot_scan_launch, lib.slot_scan_num_params,
+                       lib.policy_vm_wide_launch, lib.slot_scan_launch,
+                       lib.slot_scan_wide_launch, lib.slot_scan_num_params,
                        lib.flash_attention_launch, lib.rowclone_copy_launch):
                 fn.restype = i
             n = lib.slot_scan_num_params()

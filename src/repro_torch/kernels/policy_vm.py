@@ -3,7 +3,10 @@
 Replaces the TPU kernel ``repro.kernels.policy_vm``; the plain version is
 ``repro_torch.kernels.ref.policy_vm_ref``. The VM body
 (``csrc/policy_vm.cuh``) is the one the slot-scan kernel runs on every
-scheduling decision.
+scheduling decision. A table of up to :data:`FAST_TABLE` rows runs in the
+kernel's fast instantiation (the VM's values in a local array); a longer
+one, which the reference's ``table_bucket`` allows, in its wide
+instantiation (the values in shared memory or in global scratch).
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import torch
 
 from repro_torch.core.smcprog import N_LOADS
 
-MAX_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
+FAST_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
 
 
 def policy_vm_cuda(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
@@ -30,14 +33,24 @@ def policy_vm_cuda(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
         raise ValueError("policy_vm_cuda needs contiguous int32 tables "
                          "[P, L + 1, 4] and env [N_LOADS, Q]")
     L = int(tables.shape[1]) - 1
-    if not 1 <= L <= MAX_TABLE:
-        raise ValueError(f"table length {L} outside 1..{MAX_TABLE}")
+    if L < 1:
+        raise ValueError(f"table length {L} below 1")
     P, Q = int(tables.shape[0]), int(envm.shape[1])
     out = torch.empty((P, 3, Q), dtype=torch.int32, device=dev)
     if out.numel() == 0:   # no program or no lane: no launch, nothing counted
         return out
-    err = ops.library().policy_vm_launch(
-        ops.ptr(tables), P, L, ops.ptr(envm), Q, ops.ptr(out),
-        ops.stream_handle(dev))
-    ops.check_launch("policy_vm", err)
+    lib = ops.library()
+    if L <= FAST_TABLE:
+        err = lib.policy_vm_launch(ops.ptr(tables), P, L, ops.ptr(envm), Q,
+                                   ops.ptr(out), ops.stream_handle(dev))
+        ops.check_launch("policy_vm", err, "fast")
+        return out
+    n_scratch = lib.policy_vm_wide_scratch_ints(P, L)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
+        if n_scratch else None
+    err = lib.policy_vm_wide_launch(ops.ptr(tables), P, L, ops.ptr(envm), Q,
+                                    ops.ptr(out), ops.ptr(scratch),
+                                    ops.stream_handle(dev))
+    ops.check_launch("policy_vm", err,
+                     "wide-global" if n_scratch else "wide-shared")
     return out

@@ -2,8 +2,15 @@
 
 The kernel (``csrc/slot_scan.cu``) runs one trace row of a batch group
 through the whole slot budget in one warp (one block of 32 threads per
-row, queue lanes across the warp, the row's state in shared memory), in
-place of the reference engine's ``lax.scan`` over its slot body.
+row, queue lanes across the warp, the row's state on chip), in place of
+the reference engine's ``lax.scan`` over its slot body. It has two
+instantiations, picked here from the group's shape alone
+(:func:`instantiation`): the fast one for a queue of up to
+:data:`FAST_Q` lanes, up to :data:`FAST_BANKS` banks and a policy table
+of up to :data:`FAST_TABLE` rows (every main-path group), and the wide
+one for every other shape the reference takes, its row state in dynamic
+shared memory or, where that does not fit, in global scratch allocated
+here.
 :class:`ScanParams` holds the group's host-computed scalars (computed in
 Python ints and floats exactly as the reference does, never in device
 float); its field order is the kernel's ``ScanParams`` struct. The plain
@@ -17,10 +24,10 @@ from typing import Optional
 
 import torch
 
-MAX_Q = 64        # SCAN_MAX_Q in slot_scan.cu
-MAX_BANKS = 64    # SCAN_MAX_BANKS
-MAX_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
-RESP_RING = 1024  # SCAN_RESP_RING: t_resp of the latest requests kept on chip
+FAST_Q = 64        # SCAN_MAX_Q in slot_scan.cu
+FAST_BANKS = 64    # SCAN_MAX_BANKS
+FAST_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
+RESP_RING = 1024   # SCAN_RESP_RING: the fast instantiation's t_resp ring
 
 STAT_FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
                "smc_fpga_cycles")
@@ -67,6 +74,13 @@ def _check(name, t, shape, dtype, device):
             f"{t.device}")
 
 
+def instantiation(p: ScanParams) -> str:
+    """``"fast"`` or ``"wide"``: the kernel instantiation a group runs."""
+    fast = p.q <= FAST_Q and p.n_banks <= FAST_BANKS \
+        and p.table_len <= FAST_TABLE
+    return "fast" if fast else "wide"
+
+
 def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                    tables: Optional[torch.Tensor], costs: torch.Tensor,
                    p: ScanParams) -> dict:
@@ -78,14 +92,13 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     dev = kind.device
     if dev.type != "cuda":
         raise ValueError(f"slot_scan_cuda needs CUDA tensors, got {dev}")
-    if not 2 <= p.q <= MAX_Q or p.window > p.q \
-            or not 1 <= p.n_banks <= MAX_BANKS or p.table_len > MAX_TABLE \
+    if p.q < 2 or p.window > p.q or p.n_banks < 1 or p.table_len < 0 \
             or p.tREFI < 1:
         raise ValueError(
-            f"slot_scan kernel limits: queue 2..{MAX_Q} (got {p.q}), window "
-            f"<= queue (got {p.window}), banks 1..{MAX_BANKS} (got "
-            f"{p.n_banks}), table <= {MAX_TABLE} (got {p.table_len}), tREFI "
-            f">= 1 (got {p.tREFI})")
+            f"slot_scan: invalid configuration, which the reference engine "
+            f"cannot run either: queue >= 2 (got {p.q}), window <= queue "
+            f"(got {p.window}), banks >= 1 (got {p.n_banks}), table >= 0 "
+            f"(got {p.table_len}), tREFI >= 1 (got {p.tREFI})")
     shape = (p.batch, p.n)
     for nm, t in (("kind", kind), ("bank", bank), ("row", row),
                   ("delta", delta), ("dep", dep)):
@@ -108,11 +121,24 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     if p.batch > 0:   # an empty batch launches nothing and counts nothing
         params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
         ptr = ops.ptr
-        err = ops.library().slot_scan_launch(
-            params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
-            ptr(weak), ptr(tables), ptr(costs), ptr(t_issue), ptr(t_resp),
-            ptr(stats), ops.stream_handle(dev))
-        ops.check_launch("slot_scan", err)
+        lib = ops.library()
+        args = [params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
+                ptr(weak), ptr(tables), ptr(costs), ptr(t_issue),
+                ptr(t_resp), ptr(stats)]
+        if instantiation(p) == "fast":
+            err = lib.slot_scan_launch(*args, ops.stream_handle(dev))
+            ops.check_launch("slot_scan", err, "fast")
+        else:
+            n_scratch = lib.slot_scan_wide_scratch_ints(params)
+            if n_scratch < 0:
+                raise ValueError(f"slot_scan: a row's state for {p} cannot "
+                                 f"be indexed with 32-bit offsets")
+            scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
+                if n_scratch else None
+            err = lib.slot_scan_wide_launch(*args, ptr(scratch),
+                                            ops.stream_handle(dev))
+            ops.check_launch("slot_scan", err,
+                             "wide-global" if n_scratch else "wide-shared")
     out = {f: stats[:, i] for i, f in enumerate(STAT_FIELDS)}
     out["t_resp"] = t_resp
     out["t_issue"] = t_issue

@@ -11,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import smcprog
+from repro_torch import interop
+from repro_torch.core import emulator, smcprog
 from repro_torch.core.bloom import BloomFilter, words_tensor
+from repro_torch.core.timescale import JETSON_NANO
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.policy_vm import FAST_TABLE as VM_FAST_TABLE
+from repro_torch.kernels.policy_vm import policy_vm_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
-from repro_torch.kernels.slot_scan import (MAX_BANKS, MAX_Q, MAX_TABLE,
+from repro_torch.kernels.slot_scan import (FAST_BANKS, FAST_Q, FAST_TABLE,
                                            RESP_RING, ScanParams,
-                                           slot_scan_cuda)
+                                           instantiation, slot_scan_cuda)
 
 BLOOM_GRID = [(1 << 14, 2, 100), (1 << 16, 4, 5000), (1 << 18, 6, 20000)]
 
@@ -47,6 +51,17 @@ def vm_inputs(bucket, seed=0, q=16):
     return tables, env.astype(np.int32)
 
 
+def long_program(n_ops, name="long"):
+    """A fault-free program of at most ``n_ops`` ops whose score chains
+    age, age_rel and constants through every row, with a row-hit boost."""
+    b = smcprog.PolicyBuilder()
+    v = b.score_age()
+    hit = b.score_row_hit()
+    for _ in range((n_ops - 2) // 4):
+        v = b.add(v, b.min_(b.age_rel(), b.const(7)))
+    return b.build(score=v, boost=hit, name=name)
+
+
 def scan_params(batch, n):
     return ScanParams(batch=batch, n=n, window=4, q=4, slots=200, n_banks=16,
                       n_rows=32768, scale_num=4879, mc_lat=29, mc_issue_ts=3,
@@ -66,13 +81,25 @@ def test_bloom_probe_kernel_matches_plain(cuda_device, m_bits, k, n):
     assert torch.equal(got, ref.bloom_probe_ref(words, keys, k, m_bits))
 
 
+# buckets of the fast instantiation, and of the wide one with its values
+# in shared memory (512) and in global scratch (2048: 32 x 2048 ints are
+# more than 227 KB)
 @pytest.mark.cuda
-@pytest.mark.parametrize("bucket", [8, 16])
+@pytest.mark.parametrize("bucket", [8, 16, 512, 2048])
 def test_policy_vm_kernel_matches_plain(cuda_device, bucket):
-    tables, env = vm_inputs(bucket)
+    tables, env = vm_inputs(bucket, q=80)
+    if bucket > VM_FAST_TABLE:
+        tables = np.concatenate([smcprog.pack_stack(
+            [long_program(bucket - 3)], bucket), tables])
     t = torch.from_numpy(tables).to(cuda_device)
     e = torch.from_numpy(env).to(cuda_device)
-    assert torch.equal(ops.policy_vm(t, e), ref.policy_vm_ref(t, e))
+    ops.reset_launches()
+    got = policy_vm_cuda(t, e)
+    torch.cuda.synchronize()
+    want = "fast" if bucket <= VM_FAST_TABLE else \
+        "wide-shared" if bucket < 2048 else "wide-global"
+    assert ops.variants() == {f"policy_vm/{want}": 1}
+    assert torch.equal(got, ref.policy_vm_ref(t, e))
 
 
 # Each case varies the base group (4 rows x 64 requests, window 4, 16
@@ -93,7 +120,8 @@ SCAN_CASES = {
     "window64-table": {"window": 64, "n": 256, "slots": 600, "table": 8,
                        "weak": True, "nots": 1},
     "banks64": {"banks": 64},
-    "ring-and-far-deps": {"B": 2, "n": RESP_RING + 512, "far_deps": True,
+    "ring-and-far-deps": {"B": 2, "n": RESP_RING + 512,
+                          "far_deps": RESP_RING,
                           "slots": 2 * (RESP_RING + 512) + 8},
     "nop-filler-row": {"nop_rows": (1,)},
     "drain-early": {"real": 8, "slots": 1000},
@@ -101,22 +129,55 @@ SCAN_CASES = {
     "odd-divisors": {"params": {"tREFI": 97, "scale_num": 3001,
                                 "tRFC": 41}},
     "table256": {"B": 2, "n": 32, "slots": 80, "table": 256, "nots": 1},
+    # issue times past BIG (2^30) and past int32 (wrapping): the general
+    # argmin, a free lane winning, and age_rel's base with a table
+    "keys-past-big-table": {"delta_scale": 1 << 24, "table": 8, "nots": 1},
+    "keys-past-big": {"delta_scale": 1 << 24},
+}
+
+# The shapes past the fast instantiation, which the reference runs too:
+# a queue just past it (65) and well past (100); windows at the fast
+# ring's size (1016: a full 1016-lane queue in a 1024-entry ring) and past
+# it (1100: a 2048-entry ring), with no near dependences (the queue fills)
+# and a tenth of the requests depending on one past the ring; banks
+# just past (65), 128, 4096, and 20000 (a row's state above 227 KB, in
+# global scratch); tables just past (257 rows), 512 and 1024 with a long
+# program among the built-ins; keys past BIG with a table.
+WIDE_CASES = {
+    "q65": {"window": FAST_Q + 1, "n": 256, "slots": 600},
+    "q100": {"window": 100, "n": 256, "slots": 600, "weak": True},
+    "window1016-ring": {"B": 2, "window": 1016, "n": 2048, "slots": 4104,
+                        "dep_max": 1, "far_deps": RESP_RING},
+    "window1100-past-ring": {"B": 2, "window": 1100, "n": 3072,
+                             "slots": 6152, "dep_max": 1, "far_deps": 2048},
+    "banks65": {"banks": FAST_BANKS + 1},
+    "banks128": {"banks": 128, "n": 256, "slots": 600},
+    "banks4096": {"banks": 4096, "n": 256, "slots": 600},
+    "banks20000-global": {"B": 2, "banks": 20000, "n": 256, "slots": 600},
+    "table257": {"B": 2, "n": 32, "slots": 80, "table": FAST_TABLE + 1,
+                 "nots": 1},
+    "table512": {"B": 2, "n": 48, "slots": 110, "table": 512, "nots": 1},
+    "table1024-q80": {"B": 2, "n": 32, "slots": 80, "table": 1024,
+                      "window": 80, "weak": True, "nots": 1},
+    "keys-past-big-table-q80": {"delta_scale": 1 << 24, "table": 8,
+                                "window": 80, "nots": 1},
 }
 
 
 def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
-              weak=False, nots=0, far_deps=False, nop_rows=(), real=None,
-              params=None):
+              weak=False, nots=0, far_deps=0, nop_rows=(), real=None,
+              params=None, delta_scale=1, dep_max=3):
     """Seeded inputs of one slot-scan group; the queue has
     ``max(window, 2)`` lanes, as the engine sizes it."""
     rng = np.random.RandomState(0)
     kind, bank, row, delta, dep = (
         rng.randint(0, 5, (B, n)), rng.randint(0, banks, (B, n)),
         rng.randint(0, 64, (B, n)), rng.randint(0, 24, (B, n)),
-        rng.randint(0, 3, (B, n)))
-    if far_deps:   # some requests wait on one issued more than a ring ago
+        rng.randint(0, dep_max, (B, n)))
+    delta = delta * delta_scale
+    if far_deps:   # some requests wait on one issued more than far_deps ago
         far = rng.random_sample((B, n)) < 0.1
-        dep[far] = rng.randint(RESP_RING + 1, RESP_RING + 256, int(far.sum()))
+        dep[far] = rng.randint(far_deps + 1, far_deps + 256, int(far.sum()))
     if real is not None:   # row 0: `real` requests, then NOP padding
         kind[0, real:] = 4
     for r in nop_rows:
@@ -133,6 +194,8 @@ def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
         p = dataclasses.replace(p, use_weak=1)
     if table:
         progs = list(smcprog.builtin_programs().values())
+        if table > FAST_TABLE:
+            progs = [long_program(table // 2 + 8)] + progs
         progs = [progs[i % len(progs)] for i in range(B)]
         tables = torch.from_numpy(smcprog.pack_stack(progs, table)).to(dev)
         p = dataclasses.replace(p, table_len=table)
@@ -140,13 +203,20 @@ def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", list(SCAN_CASES))
+@pytest.mark.parametrize("variant", list(SCAN_CASES) + list(WIDE_CASES))
 def test_slot_scan_kernel_matches_plain(cuda_device, variant):
-    args, weak, tables, costs, p = scan_case(cuda_device, **SCAN_CASES[variant])
+    case = SCAN_CASES[variant] if variant in SCAN_CASES \
+        else WIDE_CASES[variant]
+    args, weak, tables, costs, p = scan_case(cuda_device, **case)
     ops.reset_launches()
     got = ops.slot_scan(*args, weak, tables, costs, p)
     torch.cuda.synchronize()
     assert ops.launches()["slot_scan"] == 1
+    kind = instantiation(p)
+    assert kind == ("wide" if variant in WIDE_CASES else "fast")
+    if kind == "wide":
+        kind += "-global" if variant.endswith("-global") else "-shared"
+    assert ops.variants() == {f"slot_scan/{kind}": 1}
     # the plain version on CPU copies of the same inputs (it is launch-bound
     # on the card)
     cpu = [None if t is None else t.cpu()
@@ -158,21 +228,89 @@ def test_slot_scan_kernel_matches_plain(cuda_device, variant):
         assert int(want["served"].sum()) == int((args[0] != 4).sum())
 
 
+# only configurations the reference cannot run either are refused: a
+# queue, bank count or table past the fast instantiation runs in the wide
+# one (WIDE_CASES above)
 @pytest.mark.cuda
-@pytest.mark.parametrize("field,value", [("q", 1), ("q", MAX_Q + 1),
-                                         ("n_banks", 0),
-                                         ("n_banks", MAX_BANKS + 1),
-                                         ("table_len", MAX_TABLE + 1),
-                                         ("tREFI", 0), ("window", 5)])
+@pytest.mark.parametrize("field,value", [("q", 1), ("n_banks", 0),
+                                         ("table_len", -1), ("tREFI", 0),
+                                         ("window", 5)])
 def test_slot_scan_cuda_refuses_past_its_limits(cuda_device, field, value):
     args, weak, tables, costs, p = scan_case(cuda_device)
-    with pytest.raises(ValueError, match="slot_scan kernel limits"):
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="invalid configuration"):
         slot_scan_cuda(*args, weak, tables, costs,
                        dataclasses.replace(p, **{field: value}))
+    assert ops.launches()["slot_scan"] == 0
+
+
+# Through the engine's entry points with the default device (CUDA), each
+# shape the fast instantiation does not take, against the plain engine on
+# the CPU: queues 65, 100, 1016 and 1100 (windows; no dependences, so
+# that the queue fills), banks 65, 128 and 4096 (drawn over all of them),
+# policy tables 512 and 1024 (a program of more than 256 or 512 ops beside
+# a built-in, through run_policies).
+ENGINE_SHAPES = {
+    "q65": {"window": 65, "n": 200, "dep_max": 1},
+    "q100": {"window": 100, "n": 200},
+    "q1016": {"window": 1016, "n": 1300, "dep_max": 1},
+    "q1100": {"window": 1100, "n": 1300, "dep_max": 1},
+    "banks65": {"n_banks": 65, "n": 200},
+    "banks128": {"n_banks": 128, "n": 200},
+    "banks4096": {"n_banks": 4096, "n": 200},
+    "table512": {"n_ops": 300, "n": 40},
+    "table1024": {"n_ops": 600, "n": 24},
+}
+
+
+def engine_case(shape):
+    """A seeded trace, a config and (for a table) programs of one shape."""
+    c = ENGINE_SHAPES[shape]
+    n_banks = c.get("n_banks", 16)
+    sys_ = dataclasses.replace(
+        JETSON_NANO, window=c.get("window", JETSON_NANO.window),
+        geometry=dataclasses.replace(JETSON_NANO.geometry, n_banks=n_banks))
+    rng = np.random.RandomState(sorted(ENGINE_SHAPES).index(shape))
+    n = c["n"]
+    trace = interop.trace_from_arrays(
+        kind=rng.randint(0, 5, n), bank=rng.randint(0, n_banks, n),
+        row=rng.randint(0, 64, n), delta=rng.randint(0, 6, n),
+        dep=rng.randint(0, c.get("dep_max", 3), n))
+    progs = None
+    if "n_ops" in c:
+        progs = [long_program(c["n_ops"]), smcprog.fcfs_program()]
+    return sys_, trace, progs
+
+
+def engine_run(sys_, trace, progs, device=None):
+    if progs is not None:
+        return emulator.run_policies(trace, sys_, progs, mode="nots",
+                                     device=device)
+    return [emulator.run(trace, sys_, m, device=device)
+            for m in ("ts", "nots")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(ENGINE_SHAPES))
+def test_engine_runs_every_reference_shape_on_the_card(cuda_device, shape):
+    sys_, trace, progs = engine_case(shape)
+    ops.reset_launches()
+    got = engine_run(sys_, trace, progs)
+    torch.cuda.synchronize()
+    # a built-in beside the long program runs in the fast instantiation
+    wide = {k: n for k, n in ops.variants().items() if "/wide" in k}
+    assert sum(wide.values()) == (1 if progs else 2), ops.variants()
+    want = engine_run(sys_, trace, progs, device="cpu")
+    for a, b in zip(got, want):
+        assert int(a["served"]) == a["n_requests"] > 0
+        for f in ("exec_cycles", "row_hits", "served", "dram_ticks",
+                  "smc_fpga_cycles", "t_resp", "t_issue"):
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
 
 
 # the grid and tolerances of tests/test_kernels.py: the kernel sums in
-# another order than the plain softmax (online, 64-key tiles)
+# another order than the plain softmax (online, in key tiles) and splits
+# each product into three TF32 products (3xTF32)
 FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
               (1, 128, 4, 1, 256)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -197,6 +335,28 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, S, H, KV, hd,
     want = (ref.flash_attention_ref(*flat, causal)
             .reshape(B, H, S, hd).permute(0, 2, 1, 3))
     assert got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# the serving path's prefill layer (S = 1024, hd = 128, fp32, causal,
+# four q heads over one kv head), and hd = 256 in bf16 over ragged tiles
+FLASH_SERVING = [(1024, 4, 1, 128, torch.float32, True),
+                 (320, 4, 2, 256, torch.bfloat16, True),
+                 (320, 4, 2, 256, torch.bfloat16, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,KV,hd,dtype,causal", FLASH_SERVING)
+def test_flash_attention_kernel_at_serving_shapes(cuda_device, S, H, KV, hd,
+                                                  dtype, causal):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    q = torch.randn((H, S, hd), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((KV, S, hd), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((KV, S, hd), generator=g, device=cuda_device).to(dtype)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 

@@ -221,3 +221,74 @@ def test_routing_rejects_other_devices():
     t = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.bloom_probe(t, t, 2, 128)
+
+
+# ---- the flash kernel's numeric decision: 3xTF32 products ----
+
+FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
+              (1, 128, 4, 1, 256)]     # tests/test_kernels.py
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` with the 13 low bits cleared, on the float32
+    bits: round to nearest, ties away from zero (sign and magnitude)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a, b, passes):
+    """``a @ b`` as the kernel's mma.sync sees it: one TF32 product, or
+    three (lo.hi + hi.lo + hi.hi, x_lo = tf32(x - x_hi)), fp32 sums."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def flash_tf32(q, k, v, causal, passes):
+    """Attention with both products in TF32 (the kernel's arithmetic, up to
+    summation order): q scaled in fp32 before its split, fp32 softmax."""
+    BH, S, hd = q.shape
+    G = BH // k.shape[0]
+    kf = k.float().repeat_interleave(G, dim=0)
+    vf = v.float().repeat_interleave(G, dim=0)
+    s = tf32_matmul(q.float() * hd ** -0.5, kf.transpose(1, 2), passes)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return tf32_matmul(p, vf, passes) / p.sum(-1, keepdim=True)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10            # TF32 keeps 10 fraction bits
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 2.0 ** -130])
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         2.0 ** -130])
+    assert torch.equal(tf32_rna(x), want)
+    # a bf16 value is exact in TF32: bf16 K and V take two products
+    kv = torch.from_numpy(np.random.RandomState(0).randn(4096)).to(
+        torch.bfloat16).float()
+    assert torch.equal(tf32_rna(kv), kv)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_GRID)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_3xtf32_meets_the_fp32_tolerance_and_1xtf32_does_not(
+        B, S, H, KV, hd, causal):
+    """Why the kernel splits every product in three: on the reference grid
+    the 3xTF32 products stay within the fp32 tolerance (2e-5) of the
+    plain version, a single TF32 pass does not."""
+    rng = np.random.RandomState(B * S + H)
+    q = torch.from_numpy(rng.randn(B * H, S, hd).astype(np.float32))
+    k = torch.from_numpy(rng.randn(B * KV, S, hd).astype(np.float32))
+    v = torch.from_numpy(rng.randn(B * KV, S, hd).astype(np.float32))
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(flash_tf32(q, k, v, causal, 3), want,
+                               atol=2e-5, rtol=2e-5)
+    one = flash_tf32(q, k, v, causal, 1)
+    assert not torch.allclose(one, want, atol=2e-5, rtol=2e-5)
+    assert float((one - want).abs().max()) > 1e-4

@@ -9,9 +9,11 @@ Phases, one line each:
 
 1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. ``bloom_probe`` kernel against its plain version (the reference test
-   grid, and every global row id through the paper-size filter);
+   grid, every global row id through the paper-size filter, and
+   ``BLOOM_CASES``);
 3. ``policy_vm`` kernel against its plain version (built-ins plus
-   seeded random tables, env values that overflow int32);
+   seeded random tables, env values that overflow int32; every bucket
+   from 8 to 1024 on random, long and garbage tables);
 4. ``slot_scan`` kernel (with ``bloom_probe``) against the plain engine
    on the card, through the engine's entry points, at reduced length;
 4b. the shapes past ``slot_scan``'s fast instantiation (queues 65, 100,
@@ -28,9 +30,12 @@ Phases, one line each:
    ``run_policies`` over the built-ins; every slot-scan group's output is
    checked as it comes (each real request served, with a response tag);
 6. each kernel's launches on the main path, its time beside its plain
-   version's and its bound; every main-path ``slot_scan`` group relaunched
-   once: the scan's summed device time and ns per slot of the
-   largest-slot and the largest-batch group, beside the phase-5 wall time;
+   version's and its bound (device time per launch and time per call);
+   every main-path ``slot_scan`` group
+   relaunched once: the scan's summed device time and ns per slot of the
+   largest-slot and the largest-batch group, beside the phase-5 wall
+   time; the policy group's ns per slot beside the same rows run as a
+   legacy FR-FCFS group (the VM's cost inside the scan);
 7. ``slot_scan`` against the plain engine over the main path's own
    groups, the plain engine running in CPU worker processes;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
@@ -114,6 +119,17 @@ WIDE_SHAPES = {"q65": (65, 16, 0, 200, 1), "q100": (100, 16, 0, 200, 3),
                "banks4096": (None, 4096, 0, 200, 3),
                "table512": (None, 16, 300, 40, 3),
                "table1024": (None, 16, 600, 24, 3)}
+# phase 2 and the card tests: (batch, keys per row, m_bits, k, one filter
+# per row): batches 1, 16 and 33; one key, and rows that are not a
+# multiple of 4 (int4 loads across row starts, scalar heads and tails);
+# filters from 2^5 to 2^23 bits (past L1); every k. The main path's shape
+# is (16, 16384, 2^20, 4).
+BLOOM_CASES = [(1, 1, 1 << 10, 1, False), (16, 16384, 1 << 20, 4, False),
+               (33, 4097, 1 << 16, 3, True), (16, 1003, 1 << 23, 8, False),
+               (33, 7, 1 << 21, 5, True), (1, 100003, 1 << 14, 2, False),
+               (16, 2049, 1 << 20, 6, True), (2, 333, 1 << 12, 7, False),
+               (3, 5, 32, 4, False), (1, 18, 64, 2, True)]
+VM_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)   # phase 3
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
 LM_BATCH, LM_PROMPT, LM_NEW, FORK_N = 4, 1024, 16, 4
@@ -274,6 +290,37 @@ def random_table(rng, max_ops, name, smcprog):
                                  name=name).validate()
 
 
+def bloom_case(np, B, n, m_bits, k, per_row):
+    """Seeded int32 words ``[B or 1, m_bits / 32]`` (three bits in four
+    set) and keys ``[B, n]`` over the whole uint32 range."""
+    rng = np.random.RandomState(m_bits + k)
+    shape = (B if per_row else 1, m_bits // 32)
+    bits = rng.randint(0, 2 ** 32, shape, dtype=np.uint64) \
+        | rng.randint(0, 2 ** 32, shape, dtype=np.uint64)
+    keys = rng.randint(0, 2 ** 32, (B, n), dtype=np.uint64)
+    return (bits.astype(np.uint32).view(np.int32),
+            keys.astype(np.uint32).view(np.int32))
+
+
+def garbage_tables(np, rng, P, L):
+    """Tables of any opcode (the gaps and past the set too), operands
+    before, at and past their row and outside the table, padding rows with
+    non-zero imm, header registers negative and past the table."""
+    t = rng.randint(-3, L + 3, (P, L + 1, 4)).astype(np.int64)
+    t[:, 1:, 0] = rng.randint(-3, 31, (P, L))
+    near = rng.random_sample((P, L)) < 0.7   # mostly earlier rows
+    rows = np.arange(L)[None, :]
+    t[:, 1:, 1] = np.where(near, np.maximum(rows - rng.randint(1, 6, (P, L)),
+                                            0), t[:, 1:, 1])
+    t[:, 1:, 3] = np.where(rng.random_sample((P, L)) < 0.5,
+                           rng.randint(-2 ** 31, 2 ** 31, (P, L)),
+                           t[:, 1:, 3])
+    n_ops = rng.randint(1, L + 1, P)
+    t[:, 0, 0] = n_ops
+    t[:, 0, 1] = np.where(rng.random_sample(P) < 0.5, n_ops - 1, t[:, 0, 1])
+    return t.astype(np.int32)
+
+
 def long_program(smcprog, n_ops, name="long"):
     """A fault-free program of at most ``n_ops`` ops whose score chains
     age, age_rel and constants through every row, with a row-hit boost."""
@@ -321,9 +368,17 @@ def phase_bloom(torch, np, ops, ref, dev, bloom_mod, techniques, timescale):
     fn = int((weak & (got[0] == 0)).sum())
     check(fn == 0, f"{fn} false negatives over all row ids")
     fp = float((~weak & (got[0] != 0)).sum()) / max(int((~weak).sum()), 1)
+    for case in BLOOM_CASES:
+        words, keys = (torch.from_numpy(a).to(dev)
+                       for a in bloom_case(np, *case))
+        got = ops.bloom_probe(words, keys, case[3], case[2])
+        check(torch.equal(got, ref.bloom_probe_ref(words, keys, case[3],
+                                                   case[2])),
+              f"bloom_probe != plain at {case}")
     say(f"phase 2 bloom_probe: exact on {n_keys} grid keys and "
         f"{ids.numel()} row ids, 0 false negatives, false-positive rate "
-        f"{fp:.6f}")
+        f"{fp:.6f}; exact on {len(BLOOM_CASES)} shapes (batches 1-33, "
+        f"filters 2^5-2^23 bits, k 1-8, per-row filters)")
 
 
 def phase_policy(torch, np, ops, ref, dev, smcprog):
@@ -350,9 +405,26 @@ def phase_policy(torch, np, ops, ref, dev, smcprog):
         check(torch.equal(got, ref.policy_vm_ref(tables, envm)),
               f"policy_vm != plain in bucket {bucket}")
         n += 128
-    say(f"phase 3 policy_vm: exact on {n} tables (buckets 8 and 16) over "
-        f"a {q}-lane env with int32 overflow")
-    return tables, envm
+    vm_tables = tables
+    for bucket in VM_BUCKETS:
+        pool = [long_program(smcprog, bucket - 3)] + [
+            random_table(rng, bucket, f"r{bucket}_{i}", smcprog)
+            for i in range(8)]
+        t = np.concatenate([smcprog.pack_stack(pool, bucket),
+                            garbage_tables(np, rng, 16, bucket)])
+        for lanes in (1, 80, 200):
+            tt = torch.from_numpy(t).to(dev)
+            e = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (
+                smcprog.N_LOADS, lanes)).astype(np.int32)).to(dev)
+            got = ops.policy_vm(tt, e)
+            check(torch.equal(got.cpu(), ref.policy_vm_ref(tt.cpu(),
+                                                           e.cpu())),
+                  f"policy_vm != plain in bucket {bucket}, {lanes} lanes")
+        n += len(t)
+    say(f"phase 3 policy_vm: exact on {n} tables (buckets 8 to 1024; "
+        f"built-in, random, long and garbage tables) over {q}-, 1-, 80- "
+        f"and 200-lane envs with int32 overflow")
+    return vm_tables, envm
 
 
 def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
@@ -689,6 +761,24 @@ def scan_totals(torch, rec, wall_s):
                                          groups[i]["args"][-1].batch)))
     by_batch = at(max(idx, key=lambda i: (groups[i]["args"][-1].batch,
                                          groups[i]["args"][-1].slots)))
+    # the VM's cost inside the scan: the policy group against its own rows
+    # run as a legacy FR-FCFS group (no table), in turns
+    pol = next(g for g in groups if g["args"][-1].table_len > 0)
+    pargs = pol["args"]
+    pp = pargs[-1]
+    largs = pargs[:6] + (None, pargs[7], dataclasses.replace(
+        pp, table_len=0, frfcfs=1))
+    tt = turns_ms({"policy": lambda: kern(*pargs),
+                   "legacy": lambda: kern(*largs)}, reps=3)
+    vm_cost = {"tag": pol["tag"], "batch": pp.batch, "n": pp.n,
+               "table_len": pp.table_len, "slots": pp.slots,
+               "ms": {k: min(v) for k, v in tt.items()},
+               **{f"{k}_ns_per_slot": min(v) * 1e6 / pp.slots
+                  for k, v in tt.items()}}
+    say(f"phase 6 policy VM inside slot_scan: the {pol['tag']} group "
+        f"({pp.batch} x {pp.n}, {pp.table_len}-row tables, {pp.slots} "
+        f"slots) {vm_cost['policy_ns_per_slot']:.1f} ns per slot, its rows "
+        f"as a legacy FR-FCFS group {vm_cost['legacy_ns_per_slot']:.1f}")
     engine_s = sum(v for k, v in wall_s.items() if k != "trace_setup")
     say(f"phase 6 slot_scan over its {len(groups)} main-path launches: "
         f"{total:.3f} ms of device time ({method}); largest-slot group "
@@ -701,6 +791,7 @@ def scan_totals(torch, rec, wall_s):
     return {"launches": len(groups), "device_ms_total": total,
             "device_ms_method": method,
             "largest_slots": by_slots, "largest_batch": by_batch,
+            "policy_vm_in_scan": vm_cost,
             "engine_wall_s": engine_s,
             "trace_setup_s": wall_s["trace_setup"], "per_group_ms": per}
 
@@ -1267,9 +1358,9 @@ def main(argv=None):
         scan["all_launches"] = scan_totals(torch, rec,
                                            report["main"]["wall_s"])
         say("phase 6 kernels: " + ", ".join(
-            f"{k['name']} {k['launches']} launches, {k['ms']:.3f} ms per "
-            f"call, device {k['device_ms']} ms (plain {k['plain_ms']:.3f} "
-            f"ms, bound {k['bound_ms']:.4f} ms)"
+            f"{k['name']} {k['launches']} launches, {k['ms']:.4f} ms per "
+            f"call, device {k['device_ms']:.5f} ms per launch (plain "
+            f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.5f} ms)"
             for k in kernels))
         err, report["plain_groups"] = phase_plain_groups(np, rec,
                                                          slower_buckets)

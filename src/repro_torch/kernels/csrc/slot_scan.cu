@@ -38,8 +38,10 @@
 // - The scheduling decision runs across the warp: row hits and the
 //   lanes holding the minimum by ballot (ties to the first lane, as the
 //   strict '<' scans), a min-reduction only where several lanes hit.
-//   With a policy table every visible lane runs the VM body of
-//   policy_vm.cuh in its own thread, all at once.
+//   With a policy table the warp decodes it once, in the prologue
+//   (policy_vm.cuh), keeps the decoded header in registers, and every
+//   thread evaluates its lanes at each decision (qlo and qhi as two
+//   interleaved chains where Q > 32), all at once.
 // - The issue frontier is not rerun while it is stuck: after it failed
 //   at ptr, it would fail again until a service writes the t_resp it
 //   waited on or frees a lane. Its next request sits in registers, and
@@ -50,14 +52,18 @@
 //   only when it is later than the picked request. Divisions by the
 //   group's fixed divisors use a precomputed multiplier, without a
 //   branch.
-// - Rarely taken paths (staging, the policy VM, a key at BIG) are out
-//   of line or behind one branch, so that the slot loop stays compact.
-// - Row state on chip, in shared memory: the bank state, the policy
-//   table, a stage of the trace ahead of the issue pointer (filled by the
-//   warp with coalesced loads, kStage / 2 entries at a time) and a ring of
-//   the t_resp of the last kRing issued requests. t_issue / t_resp are
-//   written through to global memory as they are set; the outputs are
-//   those global arrays.
+// - Rarely taken paths (staging, a key at BIG) are out of line or behind
+//   one branch, so that the slot loop stays compact. Policy and legacy
+//   groups run two instantiations of the kernel (kPolicy): the legacy
+//   loop holds no VM code, the policy loop the VM inline.
+// - Row state on chip, in shared memory: the bank state, a stage of the
+//   trace ahead of the issue pointer (filled by the warp with coalesced
+//   loads, kStage / 2 entries at a time) and a ring of the t_resp of the
+//   last kRing issued requests; with a policy table, its decoded program
+//   and the VM's values and environment, [slot][lane], in dynamic shared
+//   memory sized at launch from the table (legacy groups have none).
+//   t_issue / t_resp are written through to global memory as they are
+//   set; the outputs are those global arrays.
 // - A row stops once it has drained (condition (c) below), so the
 //   surplus slots of a group's budget cost nothing.
 //
@@ -286,9 +292,22 @@ struct RowState {
   int ring[kRing];                        // t_resp of the last kRing issued
   int flags[kStage], delta[kStage], dep[kStage], bank[kStage], row[kStage];
   int open[SCAN_MAX_BANKS], ready[SCAN_MAX_BANKS], act[SCAN_MAX_BANKS];
-  int table[(REPRO_VM_MAX_L + 1) * 4];
 };
 __shared__ RowState sm;
+// A policy group's decoded table and VM values (policy_vm.cuh) are the
+// fast kernel's dynamic shared memory, scan_vm[], laid out by
+// vm_layout(table_len, scan_vm_cols(q)); none for legacy groups.
+
+// The VM's columns in the fast instantiation: a thread's qlo and, where
+// the queue has more than 32 lanes, its qhi.
+__host__ __device__ inline int scan_vm_cols(int q) {
+  return q > 32 ? 64 : 32;
+}
+
+// hammer_ct and para_rand: no fault model, so zero, written once
+constexpr unsigned kEnvZero = (1u << 10) | (1u << 11);
+// a lane's environment flags: is_write, row_hit, bank_busy
+constexpr int kEnvWrite = 1, kEnvHit = 2, kEnvBusy = 4;
 
 // Stages trace entries [from, to) with coalesced loads. Out of line, as
 // are the other rarely taken paths, so that the slot loop stays compact
@@ -309,31 +328,69 @@ __device__ __noinline__ void stage_fill(const int* kind, const int* bank,
   __syncwarp();
 }
 
-// One visible lane's policy score and boost: the VM body of
-// policy_vm.cuh over its scheduling environment (hammer_ct, para_rand:
-// no fault model).
-__device__ __noinline__ int2 lane_policy(int L, Lane x, int q, int min_vis,
-                                         int wp, int dram_now, int last_bank,
-                                         FloorDiv nbanks) {
-  int env[REPRO_N_LOADS];
-  int vals[REPRO_VM_MAX_L];
-  env[0] = x.t;                                           // age
-  env[1] = wsub(x.t, min_vis);                            // age_rel
-  env[2] = x.open == x.row ? 1 : 0;                       // row_hit
-  env[3] = x.bank;                                        // bank
-  env[4] = x.row;                                         // row
-  env[5] = (x.flags & kFWrite) ? 1 : 0;                   // is_write
-  env[6] = x.ready > dram_now ? 1 : 0;                    // bank_busy
-  env[7] = nbanks.mod(wsub(wsub(x.bank, last_bank), 1));  // rr_dist
-  env[8] = q;                                             // qslot
-  env[9] = wp;                                            // write_pressure
-  env[10] = 0;                                            // hammer_ct
-  env[11] = 0;                                            // para_rand
-  int score, boost, mit;
-  policy_vm_lane(sm.table, L, env, vals, &score, &boost, &mit);
-  return make_int2(score, boost);
+// Writes the environment slots the decoded program reads (`mask`) of queue
+// lane q into column col: its issue time t, bank, row and flags (kEnv*).
+// Both instantiations run this.
+__device__ __forceinline__ void put_env(int* vals, int cols, int col,
+                                       unsigned mask, int t, int bank,
+                                       int row, int flags, int q,
+                                       int min_vis, int wp, int last_bank,
+                                       const FloorDiv& nbanks) {
+  int* v = vals + col;
+  if (mask & (1u << 0)) v[0 * cols] = t;                          // age
+  if (mask & (1u << 1)) v[1 * cols] = wsub(t, min_vis);           // age_rel
+  if (mask & (1u << 2)) v[2 * cols] = (flags & kEnvHit) ? 1 : 0;  // row_hit
+  if (mask & (1u << 3)) v[3 * cols] = bank;                       // bank
+  if (mask & (1u << 4)) v[4 * cols] = row;                        // row
+  if (mask & (1u << 5)) v[5 * cols] = flags & kEnvWrite;          // is_write
+  if (mask & (1u << 6)) v[6 * cols] = (flags & kEnvBusy) ? 1 : 0; // bank_busy
+  if (mask & (1u << 7))                                            // rr_dist
+    v[7 * cols] = nbanks.mod(wsub(wsub(bank, last_bank), 1));
+  if (mask & (1u << 8)) v[8 * cols] = q;                          // qslot
+  if (mask & (1u << 9)) v[9 * cols] = wp;                   // write_pressure
 }
 
+__device__ __forceinline__ int env_flags(int flags, int open, int row,
+                                         int ready, int dram_now) {
+  return ((flags & kFWrite) ? kEnvWrite : 0) | (open == row ? kEnvHit : 0) |
+         (ready > dram_now ? kEnvBusy : 0);
+}
+
+// The policy score and boost of a thread's lanes qlo (x, y) and, if two,
+// qhi (z, w): the decoded program over their environments, as two
+// interleaved chains.
+__device__ __forceinline__ int4 scan_policy(VmHot h, bool two, int t0,
+                                            int bank0, int row0, int fl0,
+                                            int t1, int bank1, int row1,
+                                            int fl1, int min_vis, int wp,
+                                            int last_bank, FloorDiv nbanks) {
+  extern __shared__ int4 scan_vm[];
+  int* vm = reinterpret_cast<int*>(scan_vm);
+  int* vals = vm + h.vals;
+  const int4* prog = reinterpret_cast<const int4*>(vm + h.prog);
+  const int lane = threadIdx.x;
+  const int hs = h.score, hb = h.boost;
+  put_env(vals, h.cols, lane, h.env, t0, bank0, row0, fl0, lane, min_vis,
+          wp, last_bank, nbanks);
+  if (!two) {
+    const int col[1] = {lane};
+    vm_run<1>(prog, h.n_exec, vals, col);
+    return make_int4(vals[hs + lane], vals[hb + lane], 0, 0);
+  }
+  put_env(vals, h.cols, lane + 32, h.env, t1, bank1, row1, fl1, lane + 32,
+          min_vis, wp, last_bank, nbanks);
+  const int col[2] = {lane, lane + 32};
+  vm_run<2>(prog, h.n_exec, vals, col);
+  return make_int4(vals[hs + lane], vals[hb + lane], vals[hs + lane + 32],
+                   vals[hb + lane + 32]);
+}
+
+// kPolicy: a policy group (table_len > 0). Legacy groups run the other
+// instantiation, whose slot loop holds no VM code at all, so that the
+// VM's code cannot change how their loop is compiled (it did: with the
+// VM in one shared loop, a change to the decode alone slowed the legacy
+// groups; PERF.md §6).
+template <bool kPolicy>
 __global__ void __launch_bounds__(32)
 slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
                  const int* __restrict__ banks, const int* __restrict__ rows,
@@ -342,6 +399,7 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
                  const int* __restrict__ tables, const int* __restrict__ costs,
                  int* __restrict__ t_issue, int* __restrict__ t_resp,
                  int* __restrict__ stats) {
+  extern __shared__ int4 scan_vm[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const size_t off = static_cast<size_t>(b) * p.n;
@@ -355,12 +413,14 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
   int* tr = t_resp + off;
   const int n = p.n;
   const int Q = p.q;
-  const int L = p.table_len;
+  const int L = p.table_len;   // > 0 exactly when kPolicy
 
-  if (L > 0) {
-    const int n_tab = (L + 1) * 4;
-    for (int i = lane; i < n_tab; i += 32)
-      sm.table[i] = tables[static_cast<size_t>(b) * n_tab + i];
+  VmHot vm_h{};   // the decoded header, for every decision
+  if (kPolicy) {
+    vm_prepare_warp(tables + static_cast<size_t>(b) * (L + 1) * 4, L,
+                    scan_vm_cols(Q), reinterpret_cast<int*>(scan_vm),
+                    vm_layout(L, scan_vm_cols(Q)), Q > 32, kEnvZero);
+    vm_h = vm_hot(reinterpret_cast<const int*>(scan_vm));
   }
   for (int i = lane; i < SCAN_MAX_BANKS; i += 32) {
     sm.open[i] = -1;
@@ -497,42 +557,35 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     // ---- scheduling decision: two-level argmin over every lane's key
     // (BIG for invisible lanes), ties to the first lane
     int qslot;
-    if (L > 0) {
-      const int wp =
-          __popc(__ballot_sync(kFull, vis_lo && (qlo.flags & kFWrite))) +
-          __popc(__ballot_sync(kFull, vis_hi && (qhi.flags & kFWrite)));
-      // age_rel's base: the reference's min over visible lanes with BIG
-      // for the others, which differs from m only past BIG
-      const int n_vis = __popc(__ballot_sync(kFull, vis_lo)) +
-                        __popc(__ballot_sync(kFull, vis_hi));
-      const int min_vis = n_vis < Q ? imin(m, REPRO_BIG) : m;
-      int ka_lo = past_lo, ka_hi = past_hi, kb_lo = past_lo, kb_hi = past_hi;
-      bool boosted = false;
-      int score, boost;
-      if (vis_lo) {
-        const int2 sb = lane_policy(L, qlo, lane, min_vis, wp, dram_now,
-                                    last_bank, nbanks);
-        score = sb.x;
-        boost = sb.y;
-        ka_lo = imin(score, REPRO_BIG - 1);
-        if (boost != 0) {
-          kb_lo = ka_lo;
-          boosted = true;
-        }
+    if (kPolicy) {
+      // write_pressure and age_rel's base only where the program reads them
+      const unsigned need = vm_h.env;
+      int wp = 0, min_vis = m;
+      if (need & (1u << 9))
+        wp = __popc(__ballot_sync(kFull, vis_lo && (qlo.flags & kFWrite))) +
+             __popc(__ballot_sync(kFull, vis_hi && (qhi.flags & kFWrite)));
+      if (need & (1u << 1)) {
+        // the reference's min over visible lanes with BIG for the others,
+        // which differs from m only past BIG
+        const int n_vis = __popc(__ballot_sync(kFull, vis_lo)) +
+                          __popc(__ballot_sync(kFull, vis_hi));
+        min_vis = n_vis < Q ? imin(m, REPRO_BIG) : m;
       }
-      if (vis_hi) {
-        const int2 sb = lane_policy(L, qhi, lane + 32, min_vis, wp,
-                                    dram_now, last_bank, nbanks);
-        score = sb.x;
-        boost = sb.y;
-        ka_hi = imin(score, REPRO_BIG - 1);
-        if (boost != 0) {
-          kb_hi = ka_hi;
-          boosted = true;
-        }
-      }
-      qslot = __ballot_sync(kFull, boosted) != 0 ? warp_argmin(kb_lo, kb_hi)
-                                                 : warp_argmin(ka_lo, ka_hi);
+      // every lane evaluates (a lane not visible is ignored below)
+      const int4 sb = scan_policy(
+          vm_h, Q > 32, qlo.t, qlo.bank, qlo.row,
+          env_flags(qlo.flags, qlo.open, qlo.row, qlo.ready, dram_now),
+          qhi.t, qhi.bank, qhi.row,
+          env_flags(qhi.flags, qhi.open, qhi.row, qhi.ready, dram_now),
+          min_vis, wp, last_bank, nbanks);
+      const int ka_lo = vis_lo ? imin(sb.x, REPRO_BIG - 1) : past_lo;
+      const int ka_hi = vis_hi ? imin(sb.z, REPRO_BIG - 1) : past_hi;
+      const bool bo_lo = vis_lo && sb.y != 0;
+      const bool bo_hi = vis_hi && sb.w != 0;
+      qslot = __ballot_sync(kFull, bo_lo || bo_hi) != 0
+                  ? warp_argmin(bo_lo ? ka_lo : past_lo,
+                                bo_hi ? ka_hi : past_hi)
+                  : warp_argmin(ka_lo, ka_hi);
     } else {
       const bool hit_lo = vis_lo && qlo.open == qlo.row;
       const bool hit_hi = vis_hi && qhi.open == qhi.row;
@@ -650,8 +703,8 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
 // too. One warp per row; queue lane q is held by thread q % 32, its free
 // bit is bit q % 32 of word q / 32. The row's state of variable size lives
 // in one region laid out at launch (WideLayout): the t_resp ring, the
-// queue lanes' requests, the free mask, the bank state, the policy table
-// and the VM's values (L per thread, interleaved across the warp). The
+// queue lanes' requests, the free mask, the bank state and the decoded
+// policy table with the VM's values (one column per thread). The
 // region is dynamic shared memory where it fits in 227 KB, else per-row
 // global scratch that the wrapper allocates. Every write to it inside the
 // slot loop is made by all 32 threads with the same value, so that each
@@ -673,8 +726,8 @@ struct WideLayout {
   int ring;     // R: a power of two
   int nw;       // 32-lane words of the queue
   int o_idx, o_t, o_bank, o_row, o_flags, o_free;
-  int o_open, o_ready, o_act, o_table, o_vals;
-  int total;    // ints per row
+  int o_open, o_ready, o_act, o_vm;   // o_vm: a VmLayout of 32 columns
+  int total;    // ints per row, a multiple of 4
   int in_smem;  // 1: dynamic shared memory; 0: global scratch
 };
 
@@ -700,8 +753,13 @@ WideLayout wide_layout(const ScanParams& p) {
   w.o_open = take(nb);
   w.o_ready = take(nb);
   w.o_act = take(nb);
-  w.o_table = take(L > 0 ? (L + 1) * 4 : 0);
-  w.o_vals = take(32 * L);
+  o = (o + 3) & ~3LL;   // the decoded program's int4 rows
+  if (L > 0) {
+    const VmLayout v = vm_layout(static_cast<int>(L), 32);
+    if (v.total < 0) return WideLayout{};
+    w.o_vm = take(v.total);
+  }
+  o = (o + 3) & ~3LL;   // the next row's region in global scratch
   if (o > 0x7fffffffLL || r > (1LL << 30)) return WideLayout{};
   w.ring = static_cast<int>(r);
   w.nw = static_cast<int>(nw);
@@ -737,31 +795,20 @@ __device__ __forceinline__ int wide_argmin(int key, int q) {
       kFull, key == m ? static_cast<unsigned>(q) : 0xffffffffu));
 }
 
-// One visible lane's policy score and boost (lane_policy above, with the
-// lane's request and its bank's state read from the region).
-__device__ __noinline__ int2 wide_lane_policy(const int* table, int L,
-                                              int* vals, int t, int bank,
-                                              int row, int flags, int q,
-                                              int min_vis, int wp, int open,
-                                              int ready, int dram_now,
-                                              int last_bank,
-                                              FloorDiv nbanks) {
-  int env[REPRO_N_LOADS];
-  env[0] = t;                                             // age
-  env[1] = wsub(t, min_vis);                              // age_rel
-  env[2] = open == row ? 1 : 0;                           // row_hit
-  env[3] = bank;                                          // bank
-  env[4] = row;                                           // row
-  env[5] = (flags & kFWrite) ? 1 : 0;                     // is_write
-  env[6] = ready > dram_now ? 1 : 0;                      // bank_busy
-  env[7] = nbanks.mod(wsub(wsub(bank, last_bank), 1));    // rr_dist
-  env[8] = q;                                             // qslot
-  env[9] = wp;                                            // write_pressure
-  env[10] = 0;                                            // hammer_ct
-  env[11] = 0;                                            // para_rand
-  int score, boost, mit;
-  policy_vm_lane(table, L, env, vals, &score, &boost, &mit, 32);
-  return make_int2(score, boost);
+// One visible lane's policy score and boost (scan_policy above, one
+// lane at a time in the thread's column of the region's decoded table).
+__device__ __noinline__ int2 wide_policy(int* vm, int t, int bank, int row,
+                                         int flags, int q, int min_vis,
+                                         int wp, int last_bank,
+                                         FloorDiv nbanks) {
+  const VmHot h = vm_hot(vm);
+  int* vals = vm + h.vals;
+  const int lane = threadIdx.x;
+  put_env(vals, 32, lane, h.env, t, bank, row, flags, q, min_vis, wp,
+          last_bank, nbanks);
+  const int col[1] = {lane};
+  vm_run<1>(reinterpret_cast<const int4*>(vm + h.prog), h.n_exec, vals, col);
+  return make_int2(vals[h.score + lane], vals[h.boost + lane]);
 }
 
 __global__ void __launch_bounds__(32)
@@ -805,8 +852,7 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
   int* b_open = region + lay.o_open;
   int* b_ready = region + lay.o_ready;
   int* b_act = region + lay.o_act;
-  int* table = region + lay.o_table;
-  int* vals = region + lay.o_vals + lane;
+  int* vm = region + lay.o_vm;
 
   for (int i = lane; i < p.n_banks; i += 32) {
     b_open[i] = -1;
@@ -817,11 +863,9 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
     const int rest = Q - 32 * w;
     l_free[w] = rest >= 32 ? ~0u : (1u << rest) - 1u;
   }
-  if (L > 0) {
-    const int n_tab = (L + 1) * 4;
-    for (int i = lane; i < n_tab; i += 32)
-      table[i] = tables[static_cast<size_t>(b) * n_tab + i];
-  }
+  if (L > 0)
+    vm_prepare_warp(tables + static_cast<size_t>(b) * (L + 1) * 4, L, 32, vm,
+                    vm_layout(L, 32), false, kEnvZero);
   __syncwarp();
 
   const int counter_inc = costs[2 * b];
@@ -907,9 +951,11 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
         int key_a = REPRO_BIG, key_b = REPRO_BIG;
         if (!wide_free(l_free, q) && l_t[q] <= cutoff) {
           const int bk = l_bank[q];
-          const int2 sb = wide_lane_policy(
-              table, L, vals, l_t[q], bk, l_row[q], l_flags[q], q, min_vis,
-              wp, b_open[bk], b_ready[bk], dram_now, last_bank, nbanks);
+          const int2 sb = wide_policy(
+              vm, l_t[q], bk, l_row[q],
+              env_flags(l_flags[q], b_open[bk], l_row[q], b_ready[bk],
+                        dram_now),
+              q, min_vis, wp, last_bank, nbanks);
           key_a = imin(sb.x, REPRO_BIG - 1);
           if (sb.y != 0) {
             key_b = key_a;
@@ -1058,6 +1104,9 @@ extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
 
 // The fast instantiation: queue <= SCAN_MAX_Q, banks <= SCAN_MAX_BANKS,
 // table <= REPRO_VM_MAX_L (the wrapper picks it by shape).
+// The policy VM's region is dynamic shared memory (none for a legacy
+// group); the kernel is opted once per process into all of it that its
+// static shared memory leaves.
 extern "C" int slot_scan_launch(const int* params, const void* kind,
                                 const void* bank, const void* row,
                                 const void* delta, const void* dep,
@@ -1066,7 +1115,26 @@ extern "C" int slot_scan_launch(const int* params, const void* kind,
                                 void* t_resp, void* stats, void* stream) {
   const ScanParams p = read_params(params);
   if (p.batch <= 0) return 0;
-  slot_scan_kernel<<<p.batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  size_t smem = 0;
+  if (p.table_len > 0) {
+    if (p.table_len > REPRO_VM_MAX_L)
+      return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t attr = [] {
+      cudaFuncAttributes a;
+      cudaError_t e = cudaFuncGetAttributes(&a, slot_scan_kernel<true>);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(
+          slot_scan_kernel<true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(REPRO_MAX_DYN_SMEM - a.sharedSizeBytes));
+    }();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    smem = static_cast<size_t>(
+               vm_layout(p.table_len, scan_vm_cols(p.q)).total) * 4;
+  }
+  const auto kernel = p.table_len > 0 ? slot_scan_kernel<true>
+                                      : slot_scan_kernel<false>;
+  kernel<<<p.batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int*>(kind), static_cast<const int*>(bank),
       static_cast<const int*>(row), static_cast<const int*>(delta),
       static_cast<const int*>(dep), static_cast<const int8_t*>(weak),

@@ -87,8 +87,19 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it where its data is not 16-byte aligned (for
+    kernels that load it 16 bytes at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of ``device``'s current stream, read
+    without building a ``torch.cuda.Stream`` (a twentieth of the host time
+    of ``torch.cuda.current_stream``: ``benchmarks/wrapper_host_cost.py``)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _nvcc() -> str:

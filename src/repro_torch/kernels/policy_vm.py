@@ -1,12 +1,14 @@
 """CUDA wrapper of the batch policy-VM kernel (``csrc/policy_vm.cu``).
 
 Replaces the TPU kernel ``repro.kernels.policy_vm``; the plain version is
-``repro_torch.kernels.ref.policy_vm_ref``. The VM body
-(``csrc/policy_vm.cuh``) is the one the slot-scan kernel runs on every
-scheduling decision. A table of up to :data:`FAST_TABLE` rows runs in the
-kernel's fast instantiation (the VM's values in a local array); a longer
-one, which the reference's ``table_bucket`` allows, in its wide
-instantiation (the values in shared memory or in global scratch).
+``repro_torch.kernels.ref.policy_vm_ref``. The VM
+(``csrc/policy_vm.cuh``: each table decoded once per launch, then run
+per lane) is the one the slot-scan kernel runs on every scheduling
+decision. A table of up to :data:`FAST_TABLE` rows runs in the kernel's
+fast instantiation (two lanes a thread, the values in shared memory); a
+longer one, which the reference's ``table_bucket`` allows, in its wide
+instantiation (one lane a thread, the values in shared memory or in
+global scratch).
 """
 from __future__ import annotations
 
@@ -40,12 +42,16 @@ def policy_vm_cuda(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:   # no program or no lane: no launch, nothing counted
         return out
     lib = ops.library()
+    tables = ops.aligned16(tables)   # the kernel loads rows as int4
     if L <= FAST_TABLE:
         err = lib.policy_vm_launch(ops.ptr(tables), P, L, ops.ptr(envm), Q,
                                    ops.ptr(out), ops.stream_handle(dev))
         ops.check_launch("policy_vm", err, "fast")
         return out
     n_scratch = lib.policy_vm_wide_scratch_ints(P, L)
+    if n_scratch < 0:
+        raise ValueError(f"policy_vm: a {L}-row table cannot be indexed "
+                         f"with 32-bit offsets")
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
         if n_scratch else None
     err = lib.policy_vm_wide_launch(ops.ptr(tables), P, L, ops.ptr(envm), Q,

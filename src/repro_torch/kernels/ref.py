@@ -9,6 +9,7 @@ batch axis of trace rows, carrying an
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,6 +32,167 @@ def bloom_probe_ref(words: torch.Tensor, keys: torch.Tensor, k: int,
 def policy_vm_ref(tables: torch.Tensor, envm: torch.Tensor) -> torch.Tensor:
     """tables ``[P, L + 1, 4]`` x env ``[N_LOADS, Q]`` -> ``[P, 3, Q]``."""
     return smcprog.evaluate_table(tables, envm)
+
+
+# The decoded policy program, which the CUDA kernels build from a packed
+# table once per launch (csrc/policy_vm.cuh, vm_decode) and run on every
+# evaluation. A lane's values live in slots: the N_LOADS environment
+# loads first, then a slot that always reads zero, then one slot per
+# table row. A load row is no instruction: a reference to it reads its
+# environment slot. A constant row (OP_CONST, and any opcode outside the
+# set) is written once before the first evaluation. Only ALU rows that a
+# header register reaches run, in table order, each a
+# ``(op | dst << VM_DST_SHIFT, a, b, c)`` row of slots.
+VM_ZERO = smcprog.N_LOADS          # the slot that reads zero
+VM_ROW0 = smcprog.N_LOADS + 1      # the slot of table row 0
+VM_DST_SHIFT = 5                   # opcodes are below 32
+
+
+def vm_n_slots(L: int) -> int:
+    return VM_ROW0 + L
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodedTable:
+    """One packed table, decoded (see :func:`decode_table`)."""
+    prog: torch.Tensor      # int32 [n_exec, 4]: op | dst << 5, a, b, c
+    consts: torch.Tensor    # int32 [n_const, 2]: slot, value
+    score: int              # the slots the header registers read
+    boost: int
+    mitigate: int
+    env_mask: int           # bit s: environment slot s is read
+    n_slots: int
+
+
+def decode_table(table) -> DecodedTable:
+    """Decode one packed ``[L + 1, 4]`` table by the rules of
+    ``smcprog.eval_table_rows`` / ``evaluate_table``:
+
+    - an operand is clipped to ``[0, L)``; one at or past its own row
+      reads zero (the reference reads rows not yet written as zero);
+    - opcodes 1..12 load ``env[op - 1]``, 16..27 are ALU ops (NOT reads
+      only ``a`` and becomes ``EQ(a, 0)``; SELECT reads ``imm`` as its
+      third operand, clipped), any other opcode is the constant ``imm``;
+    - the score register is clipped; a negative boost or mitigate
+      register reads zero, tested before the clip;
+    - a row no header register reaches, through ``a``, ``b`` and
+      SELECT's ``imm``, is dropped.
+    """
+    t = torch.as_tensor(table, dtype=torch.int32).cpu().tolist()
+    hdr, rows = t[0], t[1:]
+    L = len(rows)
+    if L < 1:
+        raise ValueError("a table needs at least one row")
+
+    def clip(x):
+        return min(max(x, 0), L - 1)
+
+    def is_load(op):
+        return smcprog.OP_AGE <= op <= smcprog.OP_PARA_RAND
+
+    def is_alu(op):
+        return smcprog.OP_ADD <= op <= smcprog.OP_SELECT
+
+    def operands(i):   # the rows row i reads (those below i)
+        op, a, b, imm = rows[i]
+        if not is_alu(op):
+            return []
+        refs = [clip(a)]
+        if op != smcprog.OP_NOT:
+            refs.append(clip(b))
+        if op == smcprog.OP_SELECT:
+            refs.append(clip(imm))
+        return [r for r in refs if r < i]
+
+    def slot_of(r):
+        op = rows[r][0]
+        return op - smcprog.OP_AGE if is_load(op) else VM_ROW0 + r
+
+    def operand_slot(i, x):
+        r = clip(x)
+        return slot_of(r) if r < i else VM_ZERO
+
+    live = [False] * L
+    live[clip(hdr[1])] = True
+    for reg in hdr[2:4]:
+        if reg >= 0:
+            live[clip(reg)] = True
+    for i in reversed(range(L)):
+        if live[i]:
+            for r in operands(i):
+                live[r] = True
+
+    prog, consts, used = [], [], []
+    for i, (op, a, b, imm) in enumerate(rows):
+        if not live[i] or is_load(op):
+            continue
+        if not is_alu(op):
+            consts.append((VM_ROW0 + i, imm))
+            continue
+        sa = operand_slot(i, a)
+        sb = VM_ZERO if op == smcprog.OP_NOT else operand_slot(i, b)
+        sc = operand_slot(i, imm) if op == smcprog.OP_SELECT else VM_ZERO
+        code = smcprog.OP_EQ if op == smcprog.OP_NOT else op
+        prog.append((code | (VM_ROW0 + i) << VM_DST_SHIFT, sa, sb, sc))
+        used += [sa, sb, sc]
+
+    def header_slot(reg, optional):
+        return VM_ZERO if optional and reg < 0 else slot_of(clip(reg))
+
+    score = header_slot(hdr[1], False)
+    boost = header_slot(hdr[2], True)
+    mitigate = header_slot(hdr[3], True)
+    used += [score, boost, mitigate]
+    env_mask = 0
+    for s in used:
+        if s < VM_ZERO:
+            env_mask |= 1 << s
+    return DecodedTable(
+        prog=torch.tensor(prog, dtype=torch.int32).reshape(-1, 4),
+        consts=torch.tensor(consts, dtype=torch.int32).reshape(-1, 2),
+        score=score, boost=boost, mitigate=mitigate, env_mask=env_mask,
+        n_slots=vm_n_slots(L))
+
+
+def eval_decoded(dec: DecodedTable, envm: torch.Tensor) -> torch.Tensor:
+    """A decoded program over ``[N_LOADS, Q]`` environments -> ``[3, Q]``
+    int32 (score, boost, mitigate), as the kernels evaluate it."""
+    q = envm.shape[-1]
+    vals = torch.zeros((dec.n_slots, q), dtype=torch.int32)
+    vals[:VM_ZERO] = envm.to(torch.int32).cpu()
+    for slot, value in dec.consts.tolist():
+        vals[slot] = value
+    wrap = smcprog.wrap32
+    for x, a, b, c in dec.prog.tolist():
+        op, dst = x & ((1 << VM_DST_SHIFT) - 1), x >> VM_DST_SHIFT
+        va, vb = vals[a], vals[b]
+        if op == smcprog.OP_ADD:
+            v = wrap(va.long() + vb.long())
+        elif op == smcprog.OP_SUB:
+            v = wrap(va.long() - vb.long())
+        elif op == smcprog.OP_MUL:
+            v = wrap(va.long() * vb.long())
+        elif op == smcprog.OP_MIN:
+            v = torch.minimum(va, vb)
+        elif op == smcprog.OP_MAX:
+            v = torch.maximum(va, vb)
+        elif op == smcprog.OP_AND:
+            v = va & vb
+        elif op == smcprog.OP_OR:
+            v = va | vb
+        elif op == smcprog.OP_EQ:
+            v = (va == vb).int()
+        elif op == smcprog.OP_LT:
+            v = (va < vb).int()
+        elif op == smcprog.OP_GE:
+            v = (va >= vb).int()
+        elif op == smcprog.OP_SELECT:
+            v = torch.where(va != 0, vb, vals[c])
+        else:
+            raise ValueError(f"decoded program holds opcode {op}")
+        vals[dst] = v
+    return torch.stack([vals[dec.score], vals[dec.boost],
+                        vals[dec.mitigate]])
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

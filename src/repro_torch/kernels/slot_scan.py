@@ -122,6 +122,7 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
         ptr = ops.ptr
         lib = ops.library()
+        tables = ops.aligned16(tables)   # the kernel loads rows as int4
         args = [params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
                 ptr(weak), ptr(tables), ptr(costs), ptr(t_issue),
                 ptr(t_resp), ptr(stats)]

@@ -6,6 +6,8 @@ file imports no JAX, so it also runs on a GPU machine that has none:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +25,10 @@ from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import (FAST_BANKS, FAST_Q, FAST_TABLE,
                                            RESP_RING, ScanParams,
                                            instantiation, slot_scan_cuda)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (the card cases, shared with chip_smoke.py)
 
 BLOOM_GRID = [(1 << 14, 2, 100), (1 << 16, 4, 5000), (1 << 18, 6, 20000)]
 
@@ -79,6 +85,62 @@ def test_bloom_probe_kernel_matches_plain(cuda_device, m_bits, k, n):
     got = ops.bloom_probe(words, keys, k, m_bits)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.bloom_probe_ref(words, keys, k, m_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m_bits,k,per_row", chip_smoke.BLOOM_CASES)
+def test_bloom_probe_cases_match_plain(cuda_device, B, n, m_bits, k,
+                                       per_row):
+    from repro_torch.kernels.bloom_probe import bloom_probe_cuda
+    words, keys = (torch.from_numpy(a).to(cuda_device) for a in
+                   chip_smoke.bloom_case(np, B, n, m_bits, k, per_row))
+    want = ref.bloom_probe_ref(words, keys, k, m_bits)
+    assert 0 < int(want.sum()) or B * n < 100
+    # the same keys one int past a 16-byte boundary: the wrapper realigns
+    buf = torch.empty(B * n + 1, dtype=torch.int32, device=cuda_device)
+    buf[1:] = keys.flatten()
+    for kk in (keys, buf[1:].view(B, n)):
+        ops.reset_launches()
+        got = bloom_probe_cuda(words, kk, k, m_bits)
+        torch.cuda.synchronize()
+        assert ops.launches()["bloom_probe"] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_stream_handle_is_the_current_stream(cuda_device):
+    """The raw handle the wrappers launch on is the current stream's,
+    inside a side stream's context too, with or without a device index."""
+    assert ops.stream_handle(cuda_device) == \
+        torch.cuda.current_stream(cuda_device).cuda_stream
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        for dev in (cuda_device, torch.device("cuda",
+                                               torch.cuda.current_device())):
+            assert ops.stream_handle(dev) == side.cuda_stream
+
+
+# every bucket from 8 to 1024, the fast instantiation up to 256 rows (1,
+# 2 and 4 warps: 80 and 200 lanes) and the wide one past it; random
+# valid programs beside garbage tables, environment values that overflow
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [8, 16, 32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("q", [1, 80, 200])
+def test_policy_vm_kernel_every_bucket(cuda_device, bucket, q):
+    rng = np.random.RandomState(bucket + q)
+    tables, env = vm_inputs(min(bucket, 16), q=q)
+    tables = np.concatenate([
+        smcprog.pack_stack([long_program(bucket - 3)]
+                           + list(smcprog.builtin_programs().values()),
+                           bucket),
+        chip_smoke.garbage_tables(np, rng, 24, bucket)])
+    t = torch.from_numpy(tables).to(cuda_device)
+    e = torch.from_numpy(env).to(cuda_device)
+    ops.reset_launches()
+    got = policy_vm_cuda(t, e)
+    torch.cuda.synchronize()
+    assert ops.launches()["policy_vm"] == 1
+    assert torch.equal(got.cpu(), ref.policy_vm_ref(t.cpu(), e.cpu()))
 
 
 # buckets of the fast instantiation, and of the wide one with its values
@@ -226,6 +288,44 @@ def test_slot_scan_kernel_matches_plain(cuda_device, variant):
         assert torch.equal(got[f].cpu(), want[f]), f
     if variant == "drain-early":   # the budget outlasts every row
         assert int(want["served"].sum()) == int((args[0] != 4).sum())
+
+
+class UncheckedProgram(smcprog.PolicyProgram):
+    """A program whose registers may point past its rows (``validate``
+    refuses that; the reference VM clips and reads the padding)."""
+
+    def validate(self):
+        return self
+
+
+@pytest.mark.cuda
+def test_run_policies_score_in_padding_row(cuda_device):
+    """The score register of one program points into its table's padding
+    (a constant 0 row: every score ties), the boost at a row hit; beside
+    a built-in. The kernel's decode must read the padding row as the
+    reference does."""
+    b = smcprog.PolicyBuilder()
+    b.score_age()
+    hit = b.score_row_hit()
+    b.and_(hit, b.not_(b.mask_bank_busy()))
+    prog = UncheckedProgram(tuple(b._rows), score_reg=6, boost_reg=1,
+                            mitigate_reg=-1, name="score-in-padding")
+    progs = [prog, smcprog.frfcfs_program()]
+    rng = np.random.RandomState(5)
+    n = 300
+    trace = interop.trace_from_arrays(
+        kind=rng.randint(0, 5, n), bank=rng.randint(0, 16, n),
+        row=rng.randint(0, 8, n), delta=rng.randint(0, 6, n),
+        dep=rng.randint(0, 3, n))
+    sys_ = dataclasses.replace(JETSON_NANO, window=40)
+    got = emulator.run_policies(trace, sys_, progs, mode="nots")
+    want = emulator.run_policies(trace, sys_, progs, mode="nots",
+                                 device="cpu")
+    for a, w in zip(got, want):
+        assert int(a["served"]) == a["n_requests"] > 0
+        for f in ("exec_cycles", "row_hits", "served", "dram_ticks",
+                  "smc_fpga_cycles", "t_resp", "t_issue"):
+            np.testing.assert_array_equal(a[f], w[f], err_msg=f)
 
 
 # only configurations the reference cannot run either are refused: a

@@ -52,6 +52,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("slot_scan", "bloom_probe", "policy_vm", "rowclone_copy")
+PRE_FAULT_PARAMS = 24   # ints in ScanParams before the fault path
 FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
           "smc_fpga_cycles", "t_resp", "t_issue")
 
@@ -98,8 +99,17 @@ def build_base(ops, base, out_dir):
                    capture_output=True)
     lib = ctypes.CDLL(so)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.slot_scan_launch.argtypes = [ctypes.POINTER(ctypes.c_int)] + [vp] * 12
+    # the base's slot_scan_launch: 12 pointers in a base from before the
+    # fault path (a 24-int parameter block), 14 since (two fault outputs,
+    # null for a fault-free group). The 12-pointer form serves only an A/B
+    # against the commit before the fault path: drop it with the next
+    # change to this harness.
+    lib.slot_scan_num_params.restype = ctypes.c_int
+    n_ptrs = 12 if lib.slot_scan_num_params() == PRE_FAULT_PARAMS else 14
+    lib.slot_scan_launch.argtypes = [ctypes.POINTER(ctypes.c_int)] \
+        + [vp] * n_ptrs
     lib.slot_scan_launch.restype = ctypes.c_int
+    lib.n_scan_outputs = n_ptrs - 9
     lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
     lib.rowclone_copy_launch.restype = ctypes.c_int
     i = ctypes.c_int
@@ -315,9 +325,10 @@ def base_scan(torch, ops, lib, args):
     t_resp = torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev)
     stats = torch.zeros((p.batch, 5), dtype=torch.int32, device=dev)
     params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
+    outs = [ops.ptr(t_issue), ops.ptr(t_resp), ops.ptr(stats)]
+    outs += [None] * (lib.n_scan_outputs - len(outs))
     err = lib.slot_scan_launch(params, *[ops.ptr(a) for a in args[:8]],
-                               ops.ptr(t_issue), ops.ptr(t_resp),
-                               ops.ptr(stats), ops.stream_handle(dev))
+                               *outs, ops.stream_handle(dev))
     if err:
         raise RuntimeError(f"base slot_scan launch failed: {err}")
     out = {f: stats[:, i] for i, f in enumerate(FIELDS[:5])}

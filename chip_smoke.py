@@ -38,6 +38,16 @@ Phases, one line each:
    legacy FR-FCFS group (the VM's cost inside the scan);
 7. ``slot_scan`` against the plain engine over the main path's own
    groups, the plain engine running in CPU worker processes;
+7b. fault injection: fault groups at a cut (the RowHammer study's policy
+   group, the legacy scheduler under the same storms, PARA without a
+   fault model, and the wide instantiation at a window of 80 and 128
+   banks) held against the plain engine in CPU workers on every field,
+   the fault fields included; then, with the counters reset just before
+   it, ``RowHammerMitigationStudy`` at full size (``JETSON_NANO``, the
+   study's fault model with retention on, its frfcfs / para / trr arms,
+   five intensities, 131072 requests a trace): each arm's bit-error rate
+   and slowdown, and the fault groups' ns per slot beside the same rows
+   run with ``faults=None``;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
@@ -107,7 +117,18 @@ PATH_KERNELS = ("bloom_probe", "slot_scan")   # launched by the entry points
 N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
 SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
 PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
-MAX_WORKERS = 8           # CPU worker processes of phases 4b and 7
+MAX_WORKERS = 8           # CPU worker processes of phases 4b, 7 and 7b
+# phase 7b: the study's fault model with retention switched on, its
+# intensities and its requests a trace (the size of the main path's
+# largest RowClone group); FAULT_CUT requests a trace at the cut, whose
+# groups the plain engine runs whole, and the full-size groups over as many
+# slots as a cut trace has
+STUDY_FM = dict(seed=7, hammer_threshold=48, hammer_flip_fp=52000,
+                weak_fp=16000, retention_ticks=30)
+STUDY_INTENSITIES = (0.1, 0.25, 0.45, 0.7, 0.9)
+STUDY_REQUESTS = 131072
+FAULT_CUT = 2048
+FAULT_SLOT_LIMIT = 2 * FAULT_CUT + 4   # the slot budget of a cut trace
 # phase 4b: (window or None for the default, banks, ops of a long policy
 # program or 0, requests, dependences drawn below this); no dependences
 # where the queue is to fill up to its window
@@ -798,7 +819,7 @@ def scan_totals(torch, rec, wall_s):
 
 def plain_scan_job(arrays, params):
     """One recorded group through the plain engine on the CPU, in a worker
-    process; returns its seven output fields and the seconds it took."""
+    process; returns its output fields and the seconds it took."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     from repro_torch.kernels import ref
@@ -824,19 +845,9 @@ def phase_plain_groups(np, rec, slower_buckets):
     ``PLAIN_SLOT_LIMIT`` slots, the kernel relaunched with that budget.
     The ts / reference groups are left out: their rows repeat the tRCD
     reduced arm's inputs, and phase 5 holds ts == reference exactly."""
-    jobs = []
-    for g in rec.groups:
-        if g["tag"] == "ts-reference":
-            continue
-        args, p = g["args"][:-1], g["args"][-1]
-        whole = p.slots <= PLAIN_SLOT_LIMIT \
-            or (g["tag"] == "trcd" and p.n in slower_buckets)
-        got = g["out"]
-        if not whole:
-            p = dataclasses.replace(p, slots=PLAIN_SLOT_LIMIT)
-            got = {f: v.cpu().numpy()
-                   for f, v in rec.orig["slot_scan"](*args, p).items()}
-        jobs.append((g["tag"], whole, p, args, got))
+    jobs = [scan_job(rec, g, PLAIN_SLOT_LIMIT,
+                     g["tag"] == "trcd" and g["args"][-1].n in slower_buckets)
+            for g in rec.groups if g["tag"] != "ts-reference"]
     err, detail = compare_plain(np, jobs)
     say(f"phase 7 slot_scan == plain engine on all 7 fields over "
         f"{detail['groups']} main-path groups "
@@ -848,11 +859,25 @@ def phase_plain_groups(np, rec, slower_buckets):
     return err, detail
 
 
+def scan_job(rec, g, limit, whole=False):
+    """A recorded ``slot_scan`` group as a ``compare_plain`` job: whole if
+    ``whole`` or its budget is at most ``limit`` slots, else over its first
+    ``limit`` slots, the kernel relaunched on its inputs with that budget."""
+    args, p = g["args"][:-1], g["args"][-1]
+    whole = whole or p.slots <= limit
+    got = g["out"]
+    if not whole:
+        p = dataclasses.replace(p, slots=limit)
+        got = {f: v.cpu().numpy()
+               for f, v in rec.orig["slot_scan"](*args, p).items()}
+    return g["tag"], whole, p, args, got
+
+
 def compare_plain(np, jobs):
     """Each job ``(tag, whole, params, input tensors, kernel outputs)``
     through the plain engine on the CPU, one group per worker process,
-    held on all seven fields; returns the largest difference (0) and a
-    detail dict."""
+    held on every field (seven, and seven more with a fault model);
+    returns the largest difference (0) and a detail dict."""
     names = ("kind", "bank", "row", "delta", "dep", "weak", "tables",
              "costs")
     jobs = [(tag, whole, p, {n: None if a is None else a.cpu().numpy()
@@ -870,7 +895,9 @@ def compare_plain(np, jobs):
     wall = time.perf_counter() - t0
     err = 0
     for (tag, whole, p, _, got), (want, _) in zip(jobs, results):
-        for f in FIELDS:
+        check(set(got) == set(want), f"slot_scan and the plain engine give "
+                                     f"other fields in a {tag} group")
+        for f in want:
             e = int(np.abs(got[f].astype(np.int64)
                            - want[f].astype(np.int64)).max())
             err = max(err, e)
@@ -882,6 +909,149 @@ def compare_plain(np, jobs):
                  "slots": slots, "plain_cpu_s": cpu_s, "workers": workers,
                  "wall_s": wall,
                  "plain_ms_per_slot": cpu_s * 1e3 / max(slots, 1)}
+
+
+def phase_faults(np, torch, ops, ref, emu, techniques, timescale, traces,
+                 faults):
+    """Fault injection on the card: fault groups at a cut, then the
+    RowHammer study at full size through its entry point (counters reset
+    just before) and its traces under the legacy scheduler with and
+    without the fault model, the fault path's cost, and every group against
+    the plain engine (the full-size ones over their first
+    ``FAULT_SLOT_LIMIT`` slots, relaunched with that budget)."""
+    from repro_torch.kernels.slot_scan import variant
+    jn = timescale.JETSON_NANO
+    fm = faults.FaultModel(**STUDY_FM)
+    study = techniques.RowHammerMitigationStudy(jn, fault_model=fm)
+    para = study.programs[next(n for n in study.programs
+                               if n.startswith("para"))]
+    wide_sys = dataclasses.replace(
+        jn, window=80, geometry=dataclasses.replace(jn.geometry,
+                                                    n_banks=128))
+    cut = [traces.rowhammer_trace(FAULT_CUT, jn.geometry, intensity=x,
+                                  seed=i)
+           for i, x in enumerate((0.45, 0.9))]
+    wide_tr = traces.rowhammer_trace(FAULT_CUT, wide_sys.geometry,
+                                     intensity=0.7, seed=3)
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    cases = [
+        ("study-cut", lambda: study.evaluate((0.45, 0.9),
+                                             n_requests=FAULT_CUT)),
+        ("legacy-cut", lambda: emu.run_many(cut, jn.with_faults(fm))),
+        ("para-no-model", lambda: emu.run_policies(cut[1], jn, [para])),
+        ("wide-cut", lambda: emu.run_policies(
+            wide_tr, wide_sys.with_faults(fm),
+            list(study.programs.values()))),
+    ]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec.record()
+    for tag, fn in cases:
+        rec.tag = tag
+        fn()
+    torch.cuda.synchronize()
+    cut_variants = ops.variants()
+    rec.restore()
+    check(set(cut_variants) == {"slot_scan/fast-faults",
+                                "slot_scan/wide-shared"},
+          f"phase 7b: the cut ran {cut_variants}")
+    cut_rec = rec
+
+    # the study at full size, through its entry point
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec.record()
+    rec.tag = "study"
+    t0 = time.perf_counter()
+    res = study.evaluate(STUDY_INTENSITIES, n_requests=STUDY_REQUESTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = ops.launches(), ops.variants()
+    # the same storms under the legacy FR-FCFS scheduler, with and without
+    # the fault model (outside the counted run)
+    full = [traces.rowhammer_trace(STUDY_REQUESTS, jn.geometry, intensity=x,
+                                   seed=i)
+            for i, x in enumerate(STUDY_INTENSITIES)]
+    rec.tag = "legacy-faults"
+    emu.run_many(full, jn.with_faults(fm))
+    rec.tag = "legacy-none"
+    emu.run_many(full, jn)
+    rec.restore()
+    check(counts["slot_scan"] > 0
+          and set(variants) == {"slot_scan/fast-faults"},
+          f"phase 7b: the study ran {counts} {variants}")
+    arms = list(study.programs)
+    for d in res:
+        for name in arms:
+            r = d[name]
+            check(0.0 <= r["bit_error_rate"] <= 1.0
+                  and r["exec_cycles"] > 0, f"study {name} at "
+                                            f"{d['intensity']}: {r}")
+    top = res[-1]
+    check(top[study.baseline]["flips"] > 0,
+          "the study's unmitigated arm flipped nothing at 0.9")
+    check(all(top[n]["mitigations"] > 0 for n in arms
+              if n != study.baseline), "a mitigation never fired at 0.9")
+
+    # the fault path's cost: each group beside the same rows without the
+    # fault model, as the engine builds them (the fault scalars are the
+    # fields with defaults; a PARA row still draws, with faults=1)
+    kern = rec.orig["slot_scan"]
+    by_tag = {g["tag"]: g for g in rec.groups}
+    p = by_tag["study"]["args"][-1]
+    p_none = type(p)(**{f.name: getattr(p, f.name)
+                        for f in dataclasses.fields(p)
+                        if f.default is dataclasses.MISSING},
+                     **emu._fault_params(jn, True))
+    timing = {}
+    pairs = {
+        "study": (by_tag["study"]["args"],
+                  by_tag["study"]["args"][:-1] + (p_none,)),
+        "legacy": (by_tag["legacy-faults"]["args"],
+                   by_tag["legacy-none"]["args"]),
+    }
+    for name, (a_on, a_off) in pairs.items():
+        tt = turns_ms({"faults": lambda: kern(*a_on),
+                       "none": lambda: kern(*a_off)}, reps=3)
+        p = a_on[-1]
+        timing[name] = {
+            "batch": p.batch, "n": p.n, "slots": p.slots,
+            "table_len": p.table_len,
+            "variants": [variant(a_on[-1]), variant(a_off[-1])],
+            "ms": tt, **{f"{k}_ns_per_slot": min(v) * 1e6 / p.slots
+                         for k, v in tt.items()}}
+    # every group against the plain engine: the cut groups whole, the full
+    # size groups over their first FAULT_SLOT_LIMIT slots (as phase 7)
+    jobs = [scan_job(cut_rec, g, FAULT_SLOT_LIMIT) for g in cut_rec.groups]
+    check(all(j[1] for j in jobs), "phase 7b: a cut group is not whole")
+    jobs += [scan_job(rec, g, FAULT_SLOT_LIMIT) for g in rec.groups]
+    err, plain = compare_plain(np, jobs)
+    say(f"phase 7b faults: slot_scan == plain engine on all fields "
+        f"(fault fields included) over {len(cut_rec.groups)} cut groups "
+        f"whole ({', '.join(t for t, _ in cases)}; {FAULT_CUT} requests a "
+        f"trace) {cut_variants} and the {len(rec.groups)} full-size groups "
+        f"({', '.join(g['tag'] for g in rec.groups)}) over their first "
+        f"{FAULT_SLOT_LIMIT} slots; plain engine {plain['plain_cpu_s']:.1f} "
+        f"CPU-s in {plain['workers']} processes, {plain['wall_s']:.1f} s")
+    say(f"phase 7b RowHammer study ({len(STUDY_INTENSITIES)} intensities x "
+        f"{len(arms)} arms, {STUDY_REQUESTS} requests a trace, fault model "
+        f"{STUDY_FM}): {wall:.2f} s, launches {counts['slot_scan']} "
+        f"{variants}")
+    for d in res:
+        say(f"  intensity {d['intensity']}: " + "; ".join(
+            f"{n} BER {d[n]['bit_error_rate']:.6f} flips {d[n]['flips']} "
+            f"mitigations {d[n]['mitigations']} slowdown "
+            f"{d[n]['slowdown_vs_unmitigated']:.4f}" for n in arms))
+    for name, t in timing.items():
+        say(f"phase 7b {name} group ({t['batch']} x {t['n']}, "
+            f"{t['slots']} slots, {t['variants'][0]} vs {t['variants'][1]}): "
+            f"{t['faults_ns_per_slot']:.1f} ns per slot with the fault "
+            f"model, {t['none_ns_per_slot']:.1f} with faults=None")
+    return err, {"cut": {"variants": cut_variants, "plain": plain},
+                 "study": res, "wall_s": wall,
+                 "launches": counts["slot_scan"], "variants": variants,
+                 "timing": timing}
 
 
 def close(got, want, atol, rtol):
@@ -1315,8 +1485,8 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.core import (bloom as bloom_mod, campaign, dram,
-                                      emulator as emu, smcprog, techniques,
-                                      timescale, traces)
+                                      emulator as emu, faults, smcprog,
+                                      techniques, timescale, traces)
         from repro_torch import configs
         from repro_torch.kernels import ops, ref
         from repro_torch.models import model_zoo
@@ -1366,6 +1536,10 @@ def main(argv=None):
                                                          slower_buckets)
         scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
         scan["plain_groups"] = report["plain_groups"]
+        err, report["faults"] = phase_faults(
+            np, torch, ops, ref, emu, techniques, timescale, traces, faults)
+        scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
+        scan["faults"] = report["faults"]
 
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)

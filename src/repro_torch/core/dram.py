@@ -84,8 +84,8 @@ def at_index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, idx.long().unsqueeze(-1)).squeeze(-1)
 
 
-def _set(x: torch.Tensor, idx: torch.Tensor,
-         val: torch.Tensor) -> torch.Tensor:
+def set_index(x: torch.Tensor, idx: torch.Tensor,
+              val: torch.Tensor) -> torch.Tensor:
     """Copy of ``x`` with ``x[..., idx] = val`` per batch row."""
     return x.scatter(-1, idx.long().unsqueeze(-1),
                      val.to(x.dtype).unsqueeze(-1))
@@ -138,9 +138,9 @@ def service_request(bank_state: dict, t: Timing, kind, bank, row, now,
     row_t = torch.as_tensor(row, dtype=torch.int32,
                             device=open_row.device).expand_as(open_row)
     bs = {
-        "open_row": _set(bank_state["open_row"], bank, row_t),
-        "ready": _set(bank_state["ready"], bank, bank_next),
-        "act_at": _set(bank_state["act_at"], bank, new_act_at),
+        "open_row": set_index(bank_state["open_row"], bank, row_t),
+        "ready": set_index(bank_state["ready"], bank, bank_next),
+        "act_at": set_index(bank_state["act_at"], bank, new_act_at),
         "bus_busy": torch.where(is_rc, bank_state["bus_busy"], data_done),
         "refs_done": bank_state["refs_done"] + refs_due,
     }

@@ -14,7 +14,9 @@ The scheduling decision is, per batch row, the legacy ``sys.scheduler``
 flag (FR-FCFS / FCFS), a staged ``sys.policy`` program, or a runtime
 policy table (:func:`run_policies`, ``run_many(policies=...)``); staged
 and runtime programs both run through the packed-table VM, the staged
-one with ``sys``'s decision cost.
+one with ``sys``'s decision cost. A fault model (``sys.faults``,
+``core.faults``) advances its carry on every served slot of the same
+scan; a policy's ``mitigate`` output charges a neighbour refresh.
 
 Execution: :func:`run_many` groups traces by (length bucket, mode,
 policy-table bucket), pads each group to its bucket and its batch to a
@@ -39,9 +41,12 @@ import torch
 
 from repro_torch.core import smcprog
 from repro_torch.core.bloom import words_tensor
-from repro_torch.core.dram import NOP
+from repro_torch.core.dram import NOP, neighbor_refresh_ticks
+from repro_torch.core.faults import (DOMAIN_HAMMER, DOMAIN_PARA,
+                                     DOMAIN_WEAK, domain_key)
 from repro_torch.core.smcprog import wrap32
 from repro_torch.core.state import BIG, EmulatorState
+from repro_torch.core.threefry import as_int32
 from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -206,13 +211,6 @@ def group_key(n: int, sys: SystemConfig, mode: str, blooms,
             ("policy", smcprog.table_bucket(policy.n_ops)))
 
 
-def _check_program(p: smcprog.PolicyProgram) -> None:
-    if p.uses(smcprog.OP_PARA_RAND):
-        raise NotImplementedError(
-            f"policy {p.name!r} loads para_rand, a fault-model draw: "
-            f"ROADMAP Queue A 7")
-
-
 def _normalize_policies(policies, policy_costs, sys: SystemConfig, n: int):
     """None, or (programs, smc_cycles_per_decision per trace row)."""
     if policies is None:
@@ -241,8 +239,28 @@ def _normalize_policies(policies, policy_costs, sys: SystemConfig, n: int):
     return policies, costs
 
 
+def _fault_params(sys: SystemConfig, para: bool) -> dict:
+    """The fault model's scan scalars and its threefry stream keys (as
+    int32 bit patterns); ``para``: a table loads ``para_rand``, which
+    draws under seed 0 without a fault model."""
+    fm = sys.faults
+    if fm is None:
+        return {"faults": int(para)}
+    kh, kw, kp = (domain_key(fm.seed, d)
+                  for d in (DOMAIN_HAMMER, DOMAIN_WEAK, DOMAIN_PARA))
+    return dict(faults=1, hammer_threshold=fm.hammer_threshold,
+                hammer_flip_fp=fm.hammer_flip_fp, weak_fp=fm.weak_fp,
+                retention_ticks=fm.retention_ticks,
+                victim_slots=fm.victim_slots,
+                mit_ticks=neighbor_refresh_ticks(sys.timing),
+                **{f"{nm}{i}": as_int32(k[i])
+                   for nm, k in (("kh", kh), ("kw", kw), ("kp", kp))
+                   for i in (0, 1)})
+
+
 def _scan_params(sys: SystemConfig, mode: str, batch: int, n: int,
-                 slots: int, table_len: int, use_weak: bool) -> ScanParams:
+                 slots: int, table_len: int, use_weak: bool,
+                 para: bool = False) -> ScanParams:
     """One group's host scalars, computed exactly as the reference does
     (Python float rounding, never device float)."""
     t = sys.timing
@@ -257,7 +275,8 @@ def _scan_params(sys: SystemConfig, mode: str, batch: int, n: int,
         frfcfs=int(sys.scheduler == "frfcfs"), table_len=table_len,
         use_weak=int(use_weak), tRCD=t.tRCD, tRCD_reduced=t.tRCD_reduced,
         tCL=t.tCL, tRP=t.tRP, tRAS=t.tRAS, tWR=t.tWR, tBL=t.tBL,
-        tRFC=t.tRFC, tREFI=t.tREFI, tRC_CLONE=t.tRC_CLONE)
+        tRFC=t.tRFC, tREFI=t.tREFI, tRC_CLONE=t.tRC_CLONE,
+        **_fault_params(sys, para))
 
 
 def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
@@ -270,6 +289,9 @@ def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
     lat = out["t_resp"] - out["t_issue"]
     ok = (padded.kind != NOP) & (out["t_resp"] < BIG)
     out["avg_load_latency_cycles"] = float(lat[ok].mean()) if ok.any() else 0.0
+    if "flips" in out:   # a fault model: flips per served request
+        out["bit_error_rate"] = float(out["flips"]) / max(int(out["served"]),
+                                                          1)
     return out
 
 
@@ -317,16 +339,16 @@ def _run_group(traces, idxs, bucket, gmode, lb, sys, modes, blooms, pol,
     cost_rows = cost_rows + [cost_rows[0]] * (bb - len(cost_rows))
     costs = torch.tensor(cost_rows, dtype=torch.int32, device=device)
     tables = None
+    para = progs is not None and any(
+        p.uses(smcprog.OP_PARA_RAND) for p in progs)
     if progs is not None:
-        for p in progs:
-            _check_program(p)
         packed = [smcprog.pack_program(p, lb) for p in progs]
         packed += [packed[0]] * (bb - len(packed))
         tables = torch.from_numpy(np.stack(packed)).to(device)
 
     slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
     p = _scan_params(sys, gmode, bb, bucket, slots,
-                     0 if tables is None else lb, weak is not None)
+                     0 if tables is None else lb, weak is not None, para)
     out = ops.slot_scan(kind, bank, row, delta, dep, weak, tables, costs, p)
     host = {kk: v.cpu().numpy() for kk, v in out.items()}
     for j, i in enumerate(idxs):
@@ -343,9 +365,9 @@ def run_many(traces: Sequence[Trace], sys: SystemConfig,
     is None, one shared ``(words, k, m_bits)`` filter or one per trace.
     ``policies`` / ``policy_costs`` give one program (and its
     ``smc_cycles_per_decision``, default ``sys``'s) per trace row.
-    Returns one result dict per trace, in input order."""
-    if sys.faults is not None:
-        raise NotImplementedError("fault injection: ROADMAP Queue A 7")
+    With a fault model (``sys.faults``) each result gains the fault
+    fields and ``bit_error_rate``. Returns one result dict per trace, in
+    input order."""
     dev = resolve_device(device)
     traces = list(traces)
     n = len(traces)

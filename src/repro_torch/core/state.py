@@ -6,9 +6,10 @@ machine, per-request issue / response tags, the hardware request queue
 domains (``mc_release`` in modeled proc cycles, ``dram_now`` in DRAM
 ticks) and the served / hit / SMC counters. The plain slot-scan engine
 (``repro_torch.kernels.ref``) carries one, with a leading batch axis;
-the CUDA slot-scan kernel keeps the same fields in registers.
-:meth:`to_host` / :meth:`from_host` exchange it as nested numpy dicts in
-the reference layout.
+the CUDA slot-scan kernel keeps the same fields on chip. ``faults`` is
+the fault model's carry (``core.faults.init_fault_state``), empty without
+a fault model. :meth:`to_host` / :meth:`from_host` exchange it as nested
+numpy dicts in the reference layout.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dram import Geometry, init_bank_state
+from repro_torch.core.faults import init_fault_state
 
 BIG = 2 ** 30
 
@@ -61,11 +63,14 @@ class EmulatorState:
     @staticmethod
     def init(n: int, sys, batch: Optional[int] = None,
              device=None) -> "EmulatorState":
-        """Fresh single-shot state for an n-request trace under ``sys``."""
+        """Fresh single-shot state for an n-request trace under ``sys``,
+        with the fault carry of ``sys.faults`` (none without one)."""
+        st = EmulatorState.fresh(n, sys.geometry.n_banks,
+                                 max(sys.window, 2), batch, device)
         if sys.faults is not None:
-            raise NotImplementedError("fault injection: ROADMAP Queue A 7")
-        return EmulatorState.fresh(n, sys.geometry.n_banks,
-                                   max(sys.window, 2), batch, device)
+            st.faults = init_fault_state(sys.faults, sys.geometry.n_banks,
+                                         batch, device)
+        return st
 
     def to_host(self) -> dict:
         """Nested dict of numpy arrays (the reference ``to_host`` layout)."""
@@ -79,14 +84,11 @@ class EmulatorState:
     @staticmethod
     def from_host(d: dict, device=None) -> "EmulatorState":
         """Inverse of :meth:`to_host`; also takes the reference package's
-        ``EmulatorState.to_host()`` dict."""
-        if d.get("faults"):
-            raise NotImplementedError("fault injection: ROADMAP Queue A 7")
-
+        ``EmulatorState.to_host()`` dict, fault carry included."""
         def tens(x):
             return torch.as_tensor(np.array(x, np.int32), device=device)
 
-        kw = {k: ({kk: tens(x) for kk, x in v.items()}
-                  if isinstance(v, dict) else tens(v))
-              for k, v in d.items() if k != "faults"}
-        return EmulatorState(**kw, faults={})
+        return EmulatorState(**{
+            k: ({kk: tens(x) for kk, x in v.items()}
+                if isinstance(v, dict) else tens(v))
+            for k, v in d.items()})

@@ -1,22 +1,26 @@
 """DRAM techniques as software-memory-controller extensions (Secs. 7-8).
 
 ``RowClone`` (in-DRAM bulk copy / initialization, with profiling-driven
-CPU fallback) and ``TRCDReduction`` (characterize weak rows, key a Bloom
-filter with them, serve every other row at reduced tRCD). Both evaluate
-through one :class:`~repro_torch.core.campaign.Campaign`: one batched
-engine call per group.
+CPU fallback), ``TRCDReduction`` (characterize weak rows, key a Bloom
+filter with them, serve every other row at reduced tRCD) and
+``RowHammerMitigationStudy`` (mitigation programs against the fault
+model's flips). Each evaluates through one
+:class:`~repro_torch.core.campaign.Campaign`: one batched engine call per
+group.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core import traces
+from repro_torch.core import smcprog, traces
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.campaign import Campaign
+from repro_torch.core.campaign import Campaign, Point
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.profiling import DeviceModel
+from repro_torch.core.smcprog import PolicyProgram
 from repro_torch.core.timescale import SystemConfig
 
 
@@ -140,3 +144,91 @@ class TRCDReduction:
             "reduced_cycles": arms[(i, "reduced")],
             "speedup": arms[(i, "base")] / max(arms[(i, "reduced")], 1),
         } for i in range(len(trs))]
+
+
+class RowHammerMitigationStudy:
+    """RowHammer mitigations as memory-controller programs, judged end to
+    end under the fault model: each (program x hammer intensity) point
+    replays a :func:`traces.rowhammer_trace` storm under one
+    :class:`FaultModel`, and the record pairs its bit-error rate with the
+    program's slowdown against the unmitigated baseline.
+
+    Programs default to :func:`smcprog.mitigation_programs` tuned to the
+    fault model: ``frfcfs`` (no mitigation: the baseline), PARA at ~5% per
+    activation and TRR at half the hammer threshold. ``derive_cost``
+    charges each program its length-derived decision cost."""
+
+    def __init__(self, sys: SystemConfig,
+                 fault_model: Optional[FaultModel] = None,
+                 programs: Optional[Dict[str, PolicyProgram]] = None,
+                 baseline: str = "frfcfs"):
+        self.sys = sys
+        self.geo = sys.geometry
+        self.fault_model = fault_model if fault_model is not None else \
+            FaultModel(seed=7, hammer_threshold=48, hammer_flip_fp=52000)
+        # TRR must trigger below the hammer threshold or it never fires
+        self.programs = dict(programs) if programs is not None \
+            else smcprog.mitigation_programs(
+                para_fp=3277,
+                trr_threshold=max(1, self.fault_model.hammer_threshold // 2))
+        if baseline not in self.programs:
+            raise ValueError(
+                f"baseline {baseline!r} not among programs "
+                f"{sorted(self.programs)}")
+        self.baseline = baseline
+
+    def evaluate(self, intensities: Sequence[float] = (0.45, 0.9),
+                 n_requests: int = 480, mode: str = "ts", seed: int = 0,
+                 derive_cost: bool = True, policy_axis: bool = True,
+                 device=None, **run_kw) -> List[dict]:
+        """One record per intensity, in order: ``{'intensity': f,
+        <program>: {bit_error_rate, flips, mitigations, exec_cycles,
+        exec_seconds, slowdown_vs_unmitigated}}``, all points in one
+        campaign. ``policy_axis=True`` carries each program as a runtime
+        table (one group per table bucket), ``False`` attaches it to the
+        config (one group per program). ``device`` is the engine's (None =
+        CUDA); the campaign takes no other run option yet (checkpointing
+        is ROADMAP Queue A 9)."""
+        if run_kw:
+            raise NotImplementedError(
+                f"Campaign.run options {sorted(run_kw)}: the port's "
+                f"campaign takes only device= (checkpoint and on_error are "
+                f"ROADMAP Queue A 9)")
+        c = Campaign()
+        sysf = self.sys.with_faults(self.fault_model)
+        for i, inten in enumerate(intensities):
+            tr = traces.rowhammer_trace(n_requests, self.geo,
+                                        intensity=float(inten),
+                                        seed=seed + i)
+            for name, prog in self.programs.items():
+                if policy_axis:
+                    cost = prog.smc_cycles() if derive_cost \
+                        else int(self.sys.smc_cycles_per_decision)
+                    # the dict key labels the record; mixed table buckets
+                    # fork into per-bucket groups
+                    c.points.append(Point(
+                        tr, sysf, mode, None, {"mitigation": name, "i": i},
+                        policy=prog, policy_cost=cost))
+                    continue
+                sysc = self.sys.with_policy(prog) if derive_cost \
+                    else dataclasses.replace(self.sys, policy=prog)
+                c.add(tr, sysc.with_faults(self.fault_model), mode,
+                      mitigation=name, i=i)
+        recs = {(r["i"], r["mitigation"]): r for r in c.run(device=device)}
+        out: List[dict] = []
+        for i, inten in enumerate(intensities):
+            base = int(recs[(i, self.baseline)]["exec_cycles"])
+            d: dict = {"intensity": float(inten)}
+            for name in self.programs:
+                r = recs[(i, name)]
+                d[name] = {
+                    "bit_error_rate": float(r["bit_error_rate"]),
+                    "flips": int(r["flips"]),
+                    "mitigations": int(r["mitigations"]),
+                    "exec_cycles": int(r["exec_cycles"]),
+                    "exec_seconds": float(r["exec_seconds"]),
+                    "slowdown_vs_unmitigated":
+                        int(r["exec_cycles"]) / max(base, 1),
+                }
+            out.append(d)
+        return out

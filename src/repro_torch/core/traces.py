@@ -2,7 +2,8 @@
 
 Two families, mirroring the paper's evaluation:
 * microbenchmarks — Copy/Init (Sec. 7), lmbench-style pointer-chase
-  latency sweep (Fig. 8);
+  latency sweep (Fig. 8), and the RowHammer aggressor storm of the fault
+  model;
 * PolyBench-like kernels (Sec. 6/8) — synthetic address streams with the
   suite's spread of memory intensities, filtered through the LLC model.
 
@@ -181,6 +182,36 @@ def init_workload(n_bytes: int, geo: Geometry, mode: str, device=None,
                 for j in range(geo.lines_per_row):
                     emit(WRITE, bank, drow, cpu_line_delta)
     return Trace.of(kinds, banks, rws, deltas, deps), meta
+
+
+def rowhammer_trace(n_requests: int, geo: Geometry, hammer_row: int = 128,
+                    hammer_bank: int = 0, intensity: float = 0.8,
+                    double_sided: bool = True, seed: int = 0,
+                    delta_max: int = 8) -> Trace:
+    """Aggressor-access storm for the fault model (``core.faults``): a
+    fraction ``intensity`` of the requests are READs that alternate
+    between ``hammer_row`` and ``hammer_row + 2`` (both neighbour the
+    victim ``hammer_row + 1``; single-sided alternates with a far decoy
+    row) on ``hammer_bank``, so every hammer is a row activation; the rest
+    are uniform background traffic on the other banks. Deterministic in
+    ``seed``; ``intensity`` is the sweep axis of
+    ``techniques.RowHammerMitigationStudy``."""
+    if not 0.0 <= intensity <= 1.0:
+        raise ValueError(f"intensity must be in [0, 1], got {intensity}")
+    rng = np.random.RandomState(seed)
+    hammer = rng.rand(n_requests) < intensity
+    alt = np.cumsum(hammer) % 2
+    other = hammer_row + 2 if double_sided \
+        else (hammer_row + geo.n_rows // 2) % geo.n_rows
+    row = np.where(hammer, np.where(alt == 0, hammer_row, other),
+                   rng.randint(0, geo.n_rows, n_requests))
+    bg_bank = (hammer_bank + rng.randint(1, max(2, geo.n_banks),
+                                         n_requests)) % geo.n_banks
+    bank = np.where(hammer, hammer_bank, bg_bank)
+    kind = np.where(hammer, READ, rng.randint(0, 2, n_requests))
+    return Trace.of(kind=kind.astype(np.int32), bank=bank, row=row,
+                    delta=rng.randint(1, delta_max, n_requests),
+                    dep=np.zeros(n_requests, np.int32))
 
 
 # ---------------- PolyBench-like kernels ----------------

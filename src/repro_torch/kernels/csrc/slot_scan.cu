@@ -71,6 +71,36 @@
 // request, so the wrapper probes every request once (bloom_probe kernel)
 // and this kernel reads one int8 flag per request.
 //
+// Fault injection (core/faults.py apply_slot, which the reference runs
+// inside the same slot body) is a third compile-time flag of the fast
+// instantiation's row body (kFaults) and a kernel of its own
+// (slot_scan_faults_kernel, whose parameters alone carry FaultParams and
+// the fault outputs), so that the fault-free kernels compile as they did.
+// The engine runs it for a group with a fault model and for a policy
+// group whose table loads para_rand (a draw under seed 0 without a fault
+// model). In it:
+// - the per-bank aggressor counters sit in shared memory beside the bank
+//   state (sm_hct, <= 64 banks); an all-bank REF (refs_due > 0 on a
+//   served slot) resets them, two stores a lane;
+// - the retention draw depends only on (bank, row), so it is hashed per
+//   request when the stage is filled (stage_weak, 32 lanes wide, off the
+//   slot chain), as the Bloom flag is probed ahead; a READ then flips
+//   when its flag is set and its service tick lies retention_ticks past
+//   the last tREFI boundary;
+// - the hammer draws are made only on a crossing activation: every lane
+//   derives the slot key, and lanes 0 and 1 draw for row - 1 and row + 1
+//   at once;
+// - events go straight to the global victim log (they are rare), in the
+//   reference's order (hammer row - 1, hammer row + 1, retention); the
+//   counts go on past its end;
+// - the policy VM's hammer_ct loads the lane's bank counter and
+//   para_rand is drawn per lane when the decoded program loads it, under
+//   the per-decision key fold_in(kp, dram_now), computed once; the picked
+//   lane's mitigate resets its bank's counter and adds mit_ticks to the
+//   bank's ready time.
+// The wide instantiation does the same at run time, with its counters in
+// its row region.
+//
 // Exactness conditions (held by tests/test_torch_cuda.py's slot-scan
 // cases and by chip_smoke.py phases 4 and 7 against the plain engine):
 //
@@ -109,10 +139,18 @@
 //     refuses a tREFI or bank count below 1), the host-rounded
 //     scale_num, argmin and first-free ties to the first lane. Keys at or
 //     above BIG (issue times past 2^30) take the general argmin.
+// (e) The fault draws as in the reference: threefry2x32 in uint32
+//     (threefry.cuh: the adds wrap, rotations are funnel shifts), each
+//     data word the uint32 pattern of its int32 (row - 1 = -1 folds in
+//     0xFFFFFFFF); the stream keys kh, kw, kp computed on the host
+//     (core/threefry.py) and passed as int32 bit patterns; t_start %
+//     tREFI by FloorDiv; the events logged in apply_slot's order, at the
+//     log index vptr while vptr < victim_slots, vptr counting every flip.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "policy_vm.cuh"
+#include "threefry.cuh"
 
 #define SCAN_MAX_Q 64
 #define SCAN_MAX_BANKS 64
@@ -132,16 +170,27 @@ constexpr int kStage = SCAN_STAGE;      // power of two, >= 2 * 8
 // key of a lane at or past Q: above every key a real lane can hold, so
 // it never wins a tie against one
 constexpr int kKeyPast = 0x7fffffff;
-// a request's flags, from its kind and (with weak flags) weak row
-constexpr int kFWrite = 1, kFRc = 2, kFNop = 4, kFWeak0 = 8;
+// a request's flags, from its kind and (with weak flags) weak row; with a
+// retention model, whether its row is a weak cell
+constexpr int kFWrite = 1, kFRc = 2, kFNop = 4, kFWeak0 = 8, kFWeakCell = 16;
 
-// Host parameter block, in this order (see slot_scan.py).
+// Host parameter block, in this order (see slot_scan.py): the scan's
+// scalars, then the fault path's. The fault-free kernels take only the
+// first struct, so that their parameters, and the code compiled for them,
+// are as they were before the fault path existed.
 struct ScanParams {
   int batch, n, window, q, slots, n_banks, n_rows;
   int scale_num, mc_lat, mc_issue_ts, nots, frfcfs, table_len, use_weak;
   int tRCD, tRCD_reduced, tCL, tRP, tRAS, tWR, tBL, tRFC, tREFI, tRC_CLONE;
 };
-constexpr int kNumParams = sizeof(ScanParams) / sizeof(int);
+// the fault path (faults.py): victim_slots 0 without a fault model
+struct FaultParams {
+  int faults, hammer_threshold, hammer_flip_fp, weak_fp, retention_ticks;
+  int victim_slots, mit_ticks;
+  int kh0, kh1, kw0, kw1, kp0, kp1;   // threefry stream keys
+};
+constexpr int kNumParams =
+    (sizeof(ScanParams) + sizeof(FaultParams)) / sizeof(int);
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -304,7 +353,10 @@ __host__ __device__ inline int scan_vm_cols(int q) {
   return q > 32 ? 64 : 32;
 }
 
-// hammer_ct and para_rand: no fault model, so zero, written once
+// hammer_ct and para_rand, written once as zero: put_env loads them only
+// on the fault path (ScanParams.faults); off it both load 0 in every
+// instantiation and in the plain engine, and the engine runs a table
+// that loads para_rand on the fault path
 constexpr unsigned kEnvZero = (1u << 10) | (1u << 11);
 // a lane's environment flags: is_write, row_hit, bank_busy
 constexpr int kEnvWrite = 1, kEnvHit = 2, kEnvBusy = 4;
@@ -328,14 +380,114 @@ __device__ __noinline__ void stage_fill(const int* kind, const int* bank,
   __syncwarp();
 }
 
+// ---- the fault path (kFaults; faults.py)
+
+// The per-bank aggressor counters of the fast instantiation's row.
+__shared__ int sm_hct[SCAN_MAX_BANKS];
+
+__device__ __forceinline__ uint2 key_of(int k0, int k1) {
+  return make_uint2(static_cast<unsigned>(k0), static_cast<unsigned>(k1));
+}
+
+// Whether row rw of bank bk is a weak cell of the retention model: the
+// top 16 bits of bits(fold_in(fold_in(kw, bank), row)) below weak_fp.
+__device__ __forceinline__ bool weak_cell(uint2 kw, int weak_fp, int bk,
+                                          int rw) {
+  return tf_u16(tf_fold_in(tf_fold_in(kw, bk), rw)) < weak_fp;
+}
+
+// Marks the staged entries [from, to) whose row is a weak cell, after
+// stage_fill, by the lanes that staged them.
+__device__ __noinline__ void stage_weak(uint2 kw, int weak_fp, int from,
+                                        int to) {
+  for (int i = from + static_cast<int>(threadIdx.x); i < to; i += 32) {
+    const int s = i & (kStage - 1);
+    if (weak_cell(kw, weak_fp, sm.bank[s], sm.row[s]))
+      sm.flags[s] |= kFWeakCell;
+  }
+  __syncwarp();
+}
+
+// A row's fault counters, alike in every lane: the flips (vptr, the next
+// log index), hammer and retention flips, fired mitigations.
+struct FaultState {
+  int vptr, ham, ret, mits;
+};
+
+// faults.py apply_slot for one served slot, run by all 32 lanes: the
+// request to bank bk, row rw (a READ if is_read, its row a weak cell if
+// weak) served at tick now, a row hit if hit; refreshed: the service
+// caught up on all-bank REFs; mit: the picked lane's mitigate. hct holds
+// the row's n_hct bank counters, vlog its victim log [3][victim_slots] in
+// global memory. Returns the extra ticks of a fired mitigation.
+__device__ __forceinline__ int fault_slot(const ScanParams& p,
+                                          const FaultParams& f, FaultState& fs,
+                                          int* hct, int n_hct, int* vlog,
+                                          int bk, int rw, bool is_read,
+                                          bool weak, bool hit, int now,
+                                          bool refreshed, bool mit,
+                                          const FloorDiv& refi) {
+  const int lane = threadIdx.x;
+  if (refreshed) {   // the REF runs before this slot's own activation
+    for (int i = lane; i < n_hct; i += 32) hct[i] = 0;
+    __syncwarp();
+  }
+  unsigned ev = 0u;   // flips: bit 0 row - 1, bit 1 row + 1, bit 2 row
+  if (f.hammer_threshold > 0) {
+    const int cur = wadd(hct[bk], hit ? 0 : 1);
+    const bool crossed = !hit && cur >= f.hammer_threshold;
+    if (crossed) {   // lanes 0 and 1 draw for the two neighbours at once
+      const uint2 kt =
+          tf_fold_in(tf_fold_in(key_of(f.kh0, f.kh1), bk), now);
+      const int vr = wadd(rw, (lane & 1) ? 1 : -1);
+      const bool flip = vr >= 0 && vr < p.n_rows &&
+                        tf_u16(tf_fold_in(kt, vr)) < f.hammer_flip_fp;
+      ev = __ballot_sync(kFull, flip) & 3u;
+    }
+    hct[bk] = crossed || mit ? 0 : cur;
+  }
+  if (f.weak_fp > 0 && is_read && weak && refi.mod(now) >= f.retention_ticks)
+    ev |= 4u;
+  for (; ev != 0u; ev &= ev - 1u) {   // in apply_slot's order
+    const int e = __ffs(ev) - 1;
+    if (lane == 0 && fs.vptr < f.victim_slots) {
+      const size_t V = static_cast<size_t>(f.victim_slots);
+      vlog[fs.vptr] = bk;
+      vlog[V + fs.vptr] = e == 2 ? rw : wadd(rw, e == 0 ? -1 : 1);
+      vlog[2 * V + fs.vptr] = now;
+    }
+    fs.vptr = wadd(fs.vptr, 1);
+    if (e == 2)
+      ++fs.ret;
+    else
+      ++fs.ham;
+  }
+  fs.mits += mit ? 1 : 0;
+  return mit ? f.mit_ticks : 0;
+}
+
+// The row's fault counters, by lane 0.
+__device__ __forceinline__ void write_fault_stats(const FaultState& fs,
+                                                  int* fst) {
+  if (threadIdx.x == 0) {
+    fst[0] = fs.vptr;
+    fst[1] = fs.ham;
+    fst[2] = fs.ret;
+    fst[3] = fs.mits;
+  }
+}
+
 // Writes the environment slots the decoded program reads (`mask`) of queue
-// lane q into column col: its issue time t, bank, row and flags (kEnv*).
-// Both instantiations run this.
+// lane q into column col: its issue time t, bank, row and flags (kEnv*);
+// with kFaults, its bank's aggressor counter hct and its para_rand draw
+// under the decision's key kt. Both instantiations run this.
+template <bool kFaults>
 __device__ __forceinline__ void put_env(int* vals, int cols, int col,
                                        unsigned mask, int t, int bank,
                                        int row, int flags, int q,
                                        int min_vis, int wp, int last_bank,
-                                       const FloorDiv& nbanks) {
+                                       const FloorDiv& nbanks, int hct,
+                                       uint2 kt) {
   int* v = vals + col;
   if (mask & (1u << 0)) v[0 * cols] = t;                          // age
   if (mask & (1u << 1)) v[1 * cols] = wsub(t, min_vis);           // age_rel
@@ -348,6 +500,11 @@ __device__ __forceinline__ void put_env(int* vals, int cols, int col,
     v[7 * cols] = nbanks.mod(wsub(wsub(bank, last_bank), 1));
   if (mask & (1u << 8)) v[8 * cols] = q;                          // qslot
   if (mask & (1u << 9)) v[9 * cols] = wp;                   // write_pressure
+  if (kFaults) {
+    if (mask & (1u << 10)) v[10 * cols] = hct;                    // hammer_ct
+    if (mask & (1u << 11))                                        // para_rand
+      v[11 * cols] = tf_u16(tf_fold_in(tf_fold_in(kt, bank), row));
+  }
 }
 
 __device__ __forceinline__ int env_flags(int flags, int open, int row,
@@ -358,47 +515,58 @@ __device__ __forceinline__ int env_flags(int flags, int open, int row,
 
 // The policy score and boost of a thread's lanes qlo (x, y) and, if two,
 // qhi (z, w): the decoded program over their environments, as two
-// interleaved chains.
+// interleaved chains; with kFaults also their mitigate outputs (mit), from
+// their bank counters hct0 / hct1 and the decision's para key kt.
+template <bool kFaults>
 __device__ __forceinline__ int4 scan_policy(VmHot h, bool two, int t0,
                                             int bank0, int row0, int fl0,
                                             int t1, int bank1, int row1,
                                             int fl1, int min_vis, int wp,
-                                            int last_bank, FloorDiv nbanks) {
+                                            int last_bank, FloorDiv nbanks,
+                                            int hct0, int hct1, uint2 kt,
+                                            int2& mit) {
   extern __shared__ int4 scan_vm[];
   int* vm = reinterpret_cast<int*>(scan_vm);
   int* vals = vm + h.vals;
   const int4* prog = reinterpret_cast<const int4*>(vm + h.prog);
   const int lane = threadIdx.x;
   const int hs = h.score, hb = h.boost;
-  put_env(vals, h.cols, lane, h.env, t0, bank0, row0, fl0, lane, min_vis,
-          wp, last_bank, nbanks);
+  put_env<kFaults>(vals, h.cols, lane, h.env, t0, bank0, row0, fl0, lane,
+                   min_vis, wp, last_bank, nbanks, hct0, kt);
   if (!two) {
     const int col[1] = {lane};
     vm_run<1>(prog, h.n_exec, vals, col);
+    if (kFaults) mit = make_int2(vals[h.mit + lane], 0);
     return make_int4(vals[hs + lane], vals[hb + lane], 0, 0);
   }
-  put_env(vals, h.cols, lane + 32, h.env, t1, bank1, row1, fl1, lane + 32,
-          min_vis, wp, last_bank, nbanks);
+  put_env<kFaults>(vals, h.cols, lane + 32, h.env, t1, bank1, row1, fl1,
+                   lane + 32, min_vis, wp, last_bank, nbanks, hct1, kt);
   const int col[2] = {lane, lane + 32};
   vm_run<2>(prog, h.n_exec, vals, col);
+  if (kFaults) mit = make_int2(vals[h.mit + lane], vals[h.mit + lane + 32]);
   return make_int4(vals[hs + lane], vals[hb + lane], vals[hs + lane + 32],
                    vals[hb + lane + 32]);
 }
 
+// One row's slot scan, the body of the fast instantiation's kernels.
 // kPolicy: a policy group (table_len > 0). Legacy groups run the other
 // instantiation, whose slot loop holds no VM code at all, so that the
 // VM's code cannot change how their loop is compiled (it did: with the
 // VM in one shared loop, a change to the decode alone slowed the legacy
-// groups; PERF.md §6).
-template <bool kPolicy>
-__global__ void __launch_bounds__(32)
-slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
-                 const int* __restrict__ banks, const int* __restrict__ rows,
-                 const int* __restrict__ deltas, const int* __restrict__ deps,
-                 const int8_t* __restrict__ weak_all,
-                 const int* __restrict__ tables, const int* __restrict__ costs,
-                 int* __restrict__ t_issue, int* __restrict__ t_resp,
-                 int* __restrict__ stats) {
+// groups; PERF.md §6). kFaults: the fault path (f.faults), for the same
+// reason a flag of its own and a kernel of its own, whose parameters
+// alone carry f, fstats [batch][4] and vlog [batch][3][victim_slots]
+// (when f.victim_slots > 0): with them in the fault-free kernels' list,
+// those compiled 5% slower (PERF.md §6).
+template <bool kPolicy, bool kFaults>
+__device__ __forceinline__ void scan_row(
+    const ScanParams& p, const FaultParams& f, const int* __restrict__ kinds,
+    const int* __restrict__ banks, const int* __restrict__ rows,
+    const int* __restrict__ deltas, const int* __restrict__ deps,
+    const int8_t* __restrict__ weak_all, const int* __restrict__ tables,
+    const int* __restrict__ costs, int* __restrict__ t_issue,
+    int* __restrict__ t_resp, int* __restrict__ stats,
+    int* __restrict__ fstats, int* __restrict__ vlog) {
   extern __shared__ int4 scan_vm[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
@@ -427,6 +595,15 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     sm.ready[i] = 0;
     sm.act[i] = 0;
   }
+  // the fault carry: a fault model (victim_slots > 0) keeps counters and a
+  // log; without one the fault path only draws para_rand
+  const bool carry = kFaults && f.victim_slots > 0;
+  const bool retention = carry && f.weak_fp > 0;
+  FaultState fs{0, 0, 0, 0};
+  int* vl = carry ? vlog + static_cast<size_t>(b) * 3 * f.victim_slots
+                  : nullptr;
+  if (kFaults)
+    for (int i = lane; i < SCAN_MAX_BANKS; i += 32) sm_hct[i] = 0;
   const int counter_inc = costs[2 * b];
   const int smc_lat = costs[2 * b + 1];
   const int mc_issue = p.nots ? smc_lat : p.mc_issue_ts;
@@ -444,6 +621,7 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
   // are staged once a pass could reach hi
   int hi = imin(n, kStage);
   stage_fill(kind, bank, row, delta, dep, weak, 0, hi);
+  if (retention) stage_weak(key_of(f.kw0, f.kw1), f.weak_fp, 0, hi);
   auto next_at = [&](int j) -> Next {
     const int s = j & (kStage - 1);
     return {sm.flags[s], sm.delta[s], sm.dep[s], sm.bank[s], sm.row[s]};
@@ -475,6 +653,7 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     if (hi < n && ptr + upto > hi) {
       const int to = imin(n, hi + kStage / 2);
       stage_fill(kind, bank, row, delta, dep, weak, hi, to);
+      if (retention) stage_weak(key_of(f.kw0, f.kw1), f.weak_fp, hi, to);
       hi = to;
       nx = next_at(ptr);
     }
@@ -557,6 +736,7 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     // ---- scheduling decision: two-level argmin over every lane's key
     // (BIG for invisible lanes), ties to the first lane
     int qslot;
+    int2 mit2 = make_int2(0, 0);   // the lanes' mitigate (kFaults)
     if (kPolicy) {
       // write_pressure and age_rel's base only where the program reads them
       const unsigned need = vm_h.env;
@@ -571,13 +751,19 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
                           __popc(__ballot_sync(kFull, vis_hi));
         min_vis = n_vis < Q ? imin(m, REPRO_BIG) : m;
       }
+      // para_rand's key for this decision, once for every lane
+      uint2 kt = make_uint2(0u, 0u);
+      if (kFaults && (need & (1u << 11)))
+        kt = tf_fold_in(key_of(f.kp0, f.kp1), dram_now);
       // every lane evaluates (a lane not visible is ignored below)
-      const int4 sb = scan_policy(
+      const int4 sb = scan_policy<kFaults>(
           vm_h, Q > 32, qlo.t, qlo.bank, qlo.row,
           env_flags(qlo.flags, qlo.open, qlo.row, qlo.ready, dram_now),
           qhi.t, qhi.bank, qhi.row,
           env_flags(qhi.flags, qhi.open, qhi.row, qhi.ready, dram_now),
-          min_vis, wp, last_bank, nbanks);
+          min_vis, wp, last_bank, nbanks,
+          kFaults ? sm_hct[qlo.bank & (SCAN_MAX_BANKS - 1)] : 0,
+          kFaults ? sm_hct[qhi.bank & (SCAN_MAX_BANKS - 1)] : 0, kt, mit2);
       const int ka_lo = vis_lo ? imin(sb.x, REPRO_BIG - 1) : past_lo;
       const int ka_hi = vis_hi ? imin(sb.z, REPRO_BIG - 1) : past_hi;
       const bool bo_lo = vis_lo && sb.y != 0;
@@ -618,16 +804,25 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     int b_act = REPRO_PICKED(act);
     int p_conv = __shfl_sync(kFull, in_hi ? conv_hi : conv_lo, owner);
     int p_refs = __shfl_sync(kFull, in_hi ? refs_hi : refs_lo, owner);
+    // the policy's mitigate of the picked lane (a visible one)
+    bool mit = false;
+    if (kPolicy && kFaults)
+      mit = __shfl_sync(kFull, in_hi ? mit2.y : mit2.x, owner) != 0;
 #undef REPRO_PICKED
     if ((free_mask >> qslot) & 1ull) {
       // a free lane won: only when no visible key is below BIG (issue
       // times past 2^30); the reference then serves request 0, the
-      // clamp of the free lane's -1
+      // clamp of the free lane's -1. Only a legacy group gets here: a
+      // policy group clamps every visible lane's score below BIG, and a
+      // decision runs only with a lane visible, so mit (false without a
+      // policy) needs no reload
       pick = 0;
       p_t = __ldcg(ti);
       bk = __ldg(bank);
       rw = __ldg(row);
       fl = request_flags(__ldg(kind), weak != nullptr && __ldg(weak) == 0);
+      if (retention && weak_cell(key_of(f.kw0, f.kw1), f.weak_fp, bk, rw))
+        fl |= kFWeakCell;
       o_row = sm.open[bk];
       b_ready = sm.ready[bk];
       b_act = sm.act[bk];
@@ -652,18 +847,26 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     const int refs_due = imax(wsub(now_refs, refs_done), 0);
     const Service sv = dram_service(p, now, refs_due, fl, rw, o_row, b_ready,
                                     b_act, bus_busy);
+    int ready_next = sv.bank_next;
+    if (carry)   // the fault carry; a fired mitigation delays the bank
+      ready_next = wadd(
+          ready_next,
+          fault_slot(p, f, fs, sm_hct, SCAN_MAX_BANKS, vl, bk, rw,
+                     (fl & (kFWrite | kFRc | kFNop)) == 0,
+                     (fl & kFWeakCell) != 0, sv.hit, now, refs_due > 0, mit,
+                     refi));
     sm.open[bk] = rw;
-    sm.ready[bk] = sv.bank_next;
+    sm.ready[bk] = ready_next;
     sm.act[bk] = sv.act_next;
     // every lane holding a request to bank bk sees its new state
     if (qlo.bank == bk) {
       qlo.open = rw;
-      qlo.ready = sv.bank_next;
+      qlo.ready = ready_next;
       qlo.act = sv.act_next;
     }
     if (qhi.bank == bk) {
       qhi.open = rw;
-      qhi.ready = sv.bank_next;
+      qhi.ready = ready_next;
       qhi.act = sv.act_next;
     }
     bus_busy = sv.bus_next;
@@ -692,6 +895,40 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
     last_bank = bk;
   }
   write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
+  if (carry) write_fault_stats(fs, fstats + 4 * b);
+}
+
+template <bool kPolicy>
+__global__ void __launch_bounds__(32)
+slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
+                 const int* __restrict__ banks, const int* __restrict__ rows,
+                 const int* __restrict__ deltas, const int* __restrict__ deps,
+                 const int8_t* __restrict__ weak_all,
+                 const int* __restrict__ tables, const int* __restrict__ costs,
+                 int* __restrict__ t_issue, int* __restrict__ t_resp,
+                 int* __restrict__ stats) {
+  scan_row<kPolicy, false>(p, FaultParams{}, kinds, banks, rows, deltas, deps,
+                           weak_all, tables, costs, t_issue, t_resp, stats,
+                           nullptr, nullptr);
+}
+
+template <bool kPolicy>
+__global__ void __launch_bounds__(32)
+slot_scan_faults_kernel(ScanParams p, FaultParams f,
+                        const int* __restrict__ kinds,
+                        const int* __restrict__ banks,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ deltas,
+                        const int* __restrict__ deps,
+                        const int8_t* __restrict__ weak_all,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ costs,
+                        int* __restrict__ t_issue, int* __restrict__ t_resp,
+                        int* __restrict__ stats, int* __restrict__ fstats,
+                        int* __restrict__ vlog) {
+  scan_row<kPolicy, true>(p, f, kinds, banks, rows, deltas, deps, weak_all,
+                          tables, costs, t_issue, t_resp, stats, fstats,
+                          vlog);
 }
 
 // ---------------------------------------------------------------------------
@@ -703,8 +940,9 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
 // too. One warp per row; queue lane q is held by thread q % 32, its free
 // bit is bit q % 32 of word q / 32. The row's state of variable size lives
 // in one region laid out at launch (WideLayout): the t_resp ring, the
-// queue lanes' requests, the free mask, the bank state and the decoded
-// policy table with the VM's values (one column per thread). The
+// queue lanes' requests, the free mask, the bank state (with the fault
+// path, the bank counters too) and the decoded policy table with the VM's
+// values (one column per thread). The
 // region is dynamic shared memory where it fits in 227 KB, else per-row
 // global scratch that the wrapper allocates. Every write to it inside the
 // slot loop is made by all 32 threads with the same value, so that each
@@ -721,18 +959,20 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
 // with a strict '<', then the warp takes the least key and, among the
 // threads that hold it, the least q. The policy environment's age_rel is
 // the reference's min over visible lanes with BIG for the others: m, or
-// BIG when a lane is not visible and m is past BIG.
+// BIG when a lane is not visible and m is past BIG. (e) The fault path
+// runs at run time here, as in the fast instantiation, but for the
+// retention draw: it is made at service, for a READ.
 struct WideLayout {
   int ring;     // R: a power of two
   int nw;       // 32-lane words of the queue
   int o_idx, o_t, o_bank, o_row, o_flags, o_free;
-  int o_open, o_ready, o_act, o_vm;   // o_vm: a VmLayout of 32 columns
+  int o_open, o_ready, o_act, o_hct, o_vm;   // o_vm: a VmLayout, 32 columns
   int total;    // ints per row, a multiple of 4
   int in_smem;  // 1: dynamic shared memory; 0: global scratch
 };
 
 // The layout for p; ring 0 when the region cannot be indexed with an int.
-WideLayout wide_layout(const ScanParams& p) {
+WideLayout wide_layout(const ScanParams& p, const FaultParams& f) {
   WideLayout w{};
   long long r = kRing;
   while (r < static_cast<long long>(p.window) + 8) r <<= 1;
@@ -753,6 +993,7 @@ WideLayout wide_layout(const ScanParams& p) {
   w.o_open = take(nb);
   w.o_ready = take(nb);
   w.o_act = take(nb);
+  w.o_hct = take(f.faults ? nb : 0);
   o = (o + 3) & ~3LL;   // the decoded program's int4 rows
   if (L > 0) {
     const VmLayout v = vm_layout(static_cast<int>(L), 32);
@@ -795,24 +1036,30 @@ __device__ __forceinline__ int wide_argmin(int key, int q) {
       kFull, key == m ? static_cast<unsigned>(q) : 0xffffffffu));
 }
 
-// One visible lane's policy score and boost (scan_policy above, one
-// lane at a time in the thread's column of the region's decoded table).
-__device__ __noinline__ int2 wide_policy(int* vm, int t, int bank, int row,
+// One visible lane's policy score, boost and mitigate (scan_policy above,
+// one lane at a time in the thread's column of the region's decoded
+// table); hct is its bank's counter, kt the decision's para_rand key.
+// Off the fault path (faults false) para_rand keeps its kEnvZero 0, as
+// in the fast fault-free kernel and the plain engine.
+__device__ __noinline__ int3 wide_policy(int* vm, int t, int bank, int row,
                                          int flags, int q, int min_vis,
                                          int wp, int last_bank,
-                                         FloorDiv nbanks) {
+                                         FloorDiv nbanks, int hct, uint2 kt,
+                                         bool faults) {
   const VmHot h = vm_hot(vm);
   int* vals = vm + h.vals;
   const int lane = threadIdx.x;
-  put_env(vals, 32, lane, h.env, t, bank, row, flags, q, min_vis, wp,
-          last_bank, nbanks);
+  const unsigned para = 1u << 11;
+  put_env<true>(vals, 32, lane, faults ? h.env : h.env & ~para, t, bank, row,
+                flags, q, min_vis, wp, last_bank, nbanks, hct, kt);
   const int col[1] = {lane};
   vm_run<1>(reinterpret_cast<const int4*>(vm + h.prog), h.n_exec, vals, col);
-  return make_int2(vals[h.score + lane], vals[h.boost + lane]);
+  return make_int3(vals[h.score + lane], vals[h.boost + lane],
+                   vals[h.mit + lane]);
 }
 
 __global__ void __launch_bounds__(32)
-slot_scan_wide_kernel(ScanParams p, WideLayout lay,
+slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
                       const int* __restrict__ kinds,
                       const int* __restrict__ banks,
                       const int* __restrict__ rows,
@@ -822,6 +1069,7 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
                       const int* __restrict__ tables,
                       const int* __restrict__ costs, int* __restrict__ t_issue,
                       int* __restrict__ t_resp, int* __restrict__ stats,
+                      int* __restrict__ fstats, int* __restrict__ vlog,
                       int* __restrict__ scratch) {
   extern __shared__ int wide_smem[];
   const int lane = threadIdx.x;
@@ -852,13 +1100,19 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
   int* b_open = region + lay.o_open;
   int* b_ready = region + lay.o_ready;
   int* b_act = region + lay.o_act;
+  int* b_hct = region + lay.o_hct;   // with f.faults
   int* vm = region + lay.o_vm;
 
   for (int i = lane; i < p.n_banks; i += 32) {
     b_open[i] = -1;
     b_ready[i] = 0;
     b_act[i] = 0;
+    if (f.faults) b_hct[i] = 0;
   }
+  const bool carry = f.victim_slots > 0;   // with f.faults: the wrapper
+  FaultState fs{0, 0, 0, 0};
+  int* vl = carry ? vlog + static_cast<size_t>(b) * 3 * f.victim_slots
+                  : nullptr;
   for (int w = lane; w < lay.nw; w += 32) {
     const int rest = Q - 32 * w;
     l_free[w] = rest >= 32 ? ~0u : (1u << rest) - 1u;
@@ -935,6 +1189,7 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
 
     // ---- scheduling decision: keys BIG for lanes not visible
     int qslot;
+    bool mit = false;   // the picked lane's mitigate
     if (L > 0) {
       int wp = 0, vis = 0;
       for (int q = lane; q < Q; q += 32) {
@@ -945,18 +1200,24 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
       wp = __reduce_add_sync(kFull, wp);
       vis = __reduce_add_sync(kFull, vis);
       const int min_vis = vis < Q ? imin(m, REPRO_BIG) : m;
-      int ka = kKeyPast, qa = Q, kb = kKeyPast, qb = Q;
+      uint2 kt = make_uint2(0u, 0u);   // para_rand's key, if drawn
+      if (f.faults && (vm[repro_vm::kHEnv] & (1 << 11)))
+        kt = tf_fold_in(key_of(f.kp0, f.kp1), dram_now);
+      // each thread's least key and lane, and that lane's mitigate
+      int ka = kKeyPast, qa = Q, kb = kKeyPast, qb = Q, ma = 0, mb = 0;
       bool boosted = false;
       for (int q = lane; q < Q; q += 32) {
-        int key_a = REPRO_BIG, key_b = REPRO_BIG;
+        int key_a = REPRO_BIG, key_b = REPRO_BIG, mq = 0;
         if (!wide_free(l_free, q) && l_t[q] <= cutoff) {
           const int bk = l_bank[q];
-          const int2 sb = wide_policy(
+          const int3 sb = wide_policy(
               vm, l_t[q], bk, l_row[q],
               env_flags(l_flags[q], b_open[bk], l_row[q], b_ready[bk],
                         dram_now),
-              q, min_vis, wp, last_bank, nbanks);
+              q, min_vis, wp, last_bank, nbanks, f.faults ? b_hct[bk] : 0,
+              kt, f.faults != 0);
           key_a = imin(sb.x, REPRO_BIG - 1);
+          mq = sb.z;
           if (sb.y != 0) {
             key_b = key_a;
             boosted = true;
@@ -965,14 +1226,18 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
         if (key_a < ka) {
           ka = key_a;
           qa = q;
+          ma = mq;
         }
         if (key_b < kb) {
           kb = key_b;
           qb = q;
+          mb = mq;
         }
       }
-      qslot = __any_sync(kFull, boosted) ? wide_argmin(kb, qb)
-                                         : wide_argmin(ka, qa);
+      // the winner is its owner thread's least lane
+      const bool any_boost = __any_sync(kFull, boosted);
+      qslot = any_boost ? wide_argmin(kb, qb) : wide_argmin(ka, qa);
+      mit = __shfl_sync(kFull, any_boost ? mb : ma, qslot & 31) != 0;
     } else {
       int ka = kKeyPast, qa = Q, kh = kKeyPast, qh = Q;
       bool any_hit = false;
@@ -999,7 +1264,9 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
     }
 
     // ---- the picked request; a free lane wins only when no visible key
-    // is below BIG, and the reference then serves request 0
+    // is below BIG, and the reference then serves request 0 (a legacy
+    // group only: a policy group's visible scores are clamped below BIG,
+    // so its mit is always a visible lane's)
     const bool won_free = wide_free(l_free, qslot);
     int pick = 0, p_t, bk, rw, fl;
     if (!won_free) {
@@ -1021,8 +1288,18 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
     const int refs_due = imax(wsub(refi.div(now), refs_done), 0);
     const Service sv = dram_service(p, now, refs_due, fl, rw, b_open[bk],
                                     b_ready[bk], b_act[bk], bus_busy);
+    int ready_next = sv.bank_next;
+    if (carry) {   // the fault carry; the retention draw at service
+      const bool is_read = (fl & (kFWrite | kFRc | kFNop)) == 0;
+      const bool weak_row = f.weak_fp > 0 && is_read &&
+                            weak_cell(key_of(f.kw0, f.kw1), f.weak_fp, bk, rw);
+      ready_next = wadd(
+          ready_next, fault_slot(p, f, fs, b_hct, p.n_banks, vl, bk, rw,
+                                 is_read, weak_row, sv.hit, now,
+                                 refs_due > 0, mit, refi));
+    }
     b_open[bk] = rw;
-    b_ready[bk] = sv.bank_next;
+    b_ready[bk] = ready_next;
     b_act[bk] = sv.act_next;
     bus_busy = sv.bus_next;
     refs_done = wadd(refs_done, refs_due);
@@ -1048,25 +1325,30 @@ slot_scan_wide_kernel(ScanParams p, WideLayout lay,
     last_bank = bk;
   }
   write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
+  if (carry) write_fault_stats(fs, fstats + 4 * b);
 }
 
 }  // namespace
 
 extern "C" int slot_scan_num_params() { return kNumParams; }
 
-static ScanParams read_params(const int* params) {
-  ScanParams p;
-  int* dst = reinterpret_cast<int*>(&p);
-  for (int i = 0; i < kNumParams; ++i) dst[i] = params[i];
-  return p;
+// The two structs from the host's flat parameter block.
+static void read_params(const int* params, ScanParams& p, FaultParams& f) {
+  constexpr int np = sizeof(ScanParams) / sizeof(int);
+  int* dp = reinterpret_cast<int*>(&p);
+  int* df = reinterpret_cast<int*>(&f);
+  for (int i = 0; i < np; ++i) dp[i] = params[i];
+  for (int i = np; i < kNumParams; ++i) df[i - np] = params[i];
 }
 
 // Global scratch (ints) the wide instantiation needs for this group: 0
 // when a row's region fits in shared memory, -1 when it is too large to
 // index.
 extern "C" long long slot_scan_wide_scratch_ints(const int* params) {
-  const ScanParams p = read_params(params);
-  const WideLayout lay = wide_layout(p);
+  ScanParams p;
+  FaultParams f;
+  read_params(params, p, f);
+  const WideLayout lay = wide_layout(p, f);
   if (lay.ring == 0) return -1;
   return lay.in_smem ? 0 : static_cast<long long>(p.batch) * lay.total;
 }
@@ -1076,12 +1358,17 @@ extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
                                      const void* delta, const void* dep,
                                      const void* weak, const void* tables,
                                      const void* costs, void* t_issue,
-                                     void* t_resp, void* stats, void* scratch,
+                                     void* t_resp, void* stats, void* fstats,
+                                     void* vlog, void* scratch,
                                      void* stream) {
-  const ScanParams p = read_params(params);
+  ScanParams p;
+  FaultParams f;
+  read_params(params, p, f);
   if (p.batch <= 0) return 0;
-  const WideLayout lay = wide_layout(p);
-  if (lay.ring == 0 || (!lay.in_smem && scratch == nullptr))
+  const WideLayout lay = wide_layout(p, f);
+  if (lay.ring == 0 || (!lay.in_smem && scratch == nullptr) ||
+      (f.victim_slots > 0 && (!f.faults || fstats == nullptr ||
+                              vlog == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   if (lay.in_smem) {
@@ -1093,53 +1380,75 @@ extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
   }
   slot_scan_wide_kernel<<<p.batch, 32, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      p, lay, static_cast<const int*>(kind), static_cast<const int*>(bank),
+      p, f, lay, static_cast<const int*>(kind), static_cast<const int*>(bank),
       static_cast<const int*>(row), static_cast<const int*>(delta),
       static_cast<const int*>(dep), static_cast<const int8_t*>(weak),
       static_cast<const int*>(tables), static_cast<const int*>(costs),
       static_cast<int*>(t_issue), static_cast<int*>(t_resp),
-      static_cast<int*>(stats), static_cast<int*>(scratch));
+      static_cast<int*>(stats), static_cast<int*>(fstats),
+      static_cast<int*>(vlog), static_cast<int*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 
+// A policy kernel of the fast instantiation opted, once per process, into
+// all the dynamic shared memory its static shared memory leaves.
+template <typename Kernel>
+static cudaError_t opt_in_policy_smem(Kernel kernel) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(REPRO_MAX_DYN_SMEM - a.sharedSizeBytes));
+}
+
 // The fast instantiation: queue <= SCAN_MAX_Q, banks <= SCAN_MAX_BANKS,
-// table <= REPRO_VM_MAX_L (the wrapper picks it by shape).
-// The policy VM's region is dynamic shared memory (none for a legacy
-// group); the kernel is opted once per process into all of it that its
-// static shared memory leaves.
+// table <= REPRO_VM_MAX_L (the wrapper picks it by shape), legacy or
+// policy, with the fault path (f.faults: its own kernel) or without. The
+// policy VM's region is dynamic shared memory (none for a legacy group).
 extern "C" int slot_scan_launch(const int* params, const void* kind,
                                 const void* bank, const void* row,
                                 const void* delta, const void* dep,
                                 const void* weak, const void* tables,
                                 const void* costs, void* t_issue,
-                                void* t_resp, void* stats, void* stream) {
-  const ScanParams p = read_params(params);
+                                void* t_resp, void* stats, void* fstats,
+                                void* vlog, void* stream) {
+  ScanParams p;
+  FaultParams f;
+  read_params(params, p, f);
   if (p.batch <= 0) return 0;
+  if (f.victim_slots > 0 &&
+      (!f.faults || fstats == nullptr || vlog == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   if (p.table_len > 0) {
     if (p.table_len > REPRO_VM_MAX_L)
       return static_cast<int>(cudaErrorInvalidValue);
-    static const cudaError_t attr = [] {
-      cudaFuncAttributes a;
-      cudaError_t e = cudaFuncGetAttributes(&a, slot_scan_kernel<true>);
-      if (e != cudaSuccess) return e;
-      return cudaFuncSetAttribute(
-          slot_scan_kernel<true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(REPRO_MAX_DYN_SMEM - a.sharedSizeBytes));
-    }();
+    static const cudaError_t attr_plain =
+        opt_in_policy_smem(slot_scan_kernel<true>);
+    static const cudaError_t attr_faults =
+        opt_in_policy_smem(slot_scan_faults_kernel<true>);
+    const cudaError_t attr = f.faults ? attr_faults : attr_plain;
     if (attr != cudaSuccess) return static_cast<int>(attr);
     smem = static_cast<size_t>(
                vm_layout(p.table_len, scan_vm_cols(p.q)).total) * 4;
   }
-  const auto kernel = p.table_len > 0 ? slot_scan_kernel<true>
-                                      : slot_scan_kernel<false>;
-  kernel<<<p.batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int*>(kind), static_cast<const int*>(bank),
-      static_cast<const int*>(row), static_cast<const int*>(delta),
-      static_cast<const int*>(dep), static_cast<const int8_t*>(weak),
-      static_cast<const int*>(tables), static_cast<const int*>(costs),
-      static_cast<int*>(t_issue), static_cast<int*>(t_resp),
-      static_cast<int*>(stats));
+  const auto i = [](const void* x) { return static_cast<const int*>(x); };
+  const auto o = [](void* x) { return static_cast<int*>(x); };
+  const auto w = static_cast<const int8_t*>(weak);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f.faults) {
+    const auto kernel = p.table_len > 0 ? slot_scan_faults_kernel<true>
+                                        : slot_scan_faults_kernel<false>;
+    kernel<<<p.batch, 32, smem, st>>>(
+        p, f, i(kind), i(bank), i(row), i(delta), i(dep), w, i(tables),
+        i(costs), o(t_issue), o(t_resp), o(stats), o(fstats), o(vlog));
+  } else {
+    const auto kernel = p.table_len > 0 ? slot_scan_kernel<true>
+                                        : slot_scan_kernel<false>;
+    kernel<<<p.batch, 32, smem, st>>>(
+        p, i(kind), i(bank), i(row), i(delta), i(dep), w, i(tables),
+        i(costs), o(t_issue), o(t_resp), o(stats));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,7 +42,7 @@ KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "flash_attention",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu",
             "flash_attention.cu", "rowclone_copy.cu")
-_HEADERS = ("common.cuh", "policy_vm.cuh")
+_HEADERS = ("common.cuh", "policy_vm.cuh", "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -178,9 +178,9 @@ def library() -> ctypes.CDLL:
                                                   vp]
             lib.policy_vm_wide_scratch_ints.argtypes = [i, i]
             lib.policy_vm_wide_scratch_ints.restype = ll
-            lib.slot_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 12
+            lib.slot_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 14
             lib.slot_scan_wide_launch.argtypes = [ctypes.POINTER(i)] \
-                + [vp] * 13
+                + [vp] * 15
             lib.slot_scan_wide_scratch_ints.argtypes = [ctypes.POINTER(i)]
             lib.slot_scan_wide_scratch_ints.restype = ll
             lib.slot_scan_num_params.argtypes = []

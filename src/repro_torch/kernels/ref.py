@@ -17,7 +17,11 @@ import torch
 from repro_torch.core import dram, smcprog
 from repro_torch.core.bloom import bloom_probe_torch
 from repro_torch.core.dram import NOP, WRITE, at_index
+from repro_torch.core.faults import (FaultModel, apply_slot,
+                                     fault_result_fields, init_fault_state,
+                                     para_bits)
 from repro_torch.core.state import BIG, EmulatorState
+from repro_torch.core.threefry import u32
 from repro_torch.kernels.slot_scan import STAT_FIELDS, ScanParams
 
 FP = 4096  # fixed-point denominator for tick<->cycle conversion
@@ -271,11 +275,11 @@ def _issue_frontier(st: EmulatorState, kind, delta, dep, W: int,
 
 
 def _policy_env(q_t, q_bank, q_row, is_write, visible, hit_now, ready,
-                dram_now, last_bank, n_banks: int) -> torch.Tensor:
+                dram_now, last_bank, n_banks: int, hammer_ct,
+                para_rand) -> torch.Tensor:
     """The ``[B, N_LOADS, Q]`` scheduling environment, rows in opcode
-    order (``hammer_ct`` and ``para_rand`` are zero: no fault model)."""
+    order."""
     Q = q_t.shape[1]
-    zero = torch.zeros_like(q_t)
     age_rel = q_t - torch.where(visible, q_t, BIG).amin(1, keepdim=True)
     bank_busy = (torch.gather(ready, 1, q_bank.long())
                  > dram_now.unsqueeze(1)).int()
@@ -284,14 +288,16 @@ def _policy_env(q_t, q_bank, q_row, is_write, visible, hit_now, ready,
                          device=q_t.device).expand_as(q_t)
     wp = (visible & is_write).int().sum(1, keepdim=True).int().expand_as(q_t)
     rows = [q_t, age_rel, hit_now.int(), q_bank, q_row, is_write.int(),
-            bank_busy, rr_dist, qslot, wp, zero, zero]
+            bank_busy, rr_dist, qslot, wp, hammer_ct, para_rand]
     return torch.stack([r.to(torch.int32) for r in rows], dim=1)
 
 
 def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                   tables: Optional[torch.Tensor], costs: torch.Tensor,
                   p: ScanParams) -> dict:
-    """Plain version of ``slot_scan_cuda``: same inputs, same outputs."""
+    """Plain version of ``slot_scan_cuda``: same inputs, same outputs.
+    With a fault model (``p.victim_slots > 0``) every served slot advances
+    its carry (``core.faults.apply_slot``) after the DRAM service."""
     B, N = kind.shape
     dev = kind.device
     W = p.window
@@ -304,6 +310,23 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     vis_slack = smc_lat if p.nots else torch.zeros_like(smc_lat)
     den = max(p.scale_num, 1)
     st = EmulatorState.fresh(N, p.n_banks, p.q, batch=B, device=dev)
+    if p.victim_slots < 0 or (p.victim_slots > 0 and not p.faults):
+        raise ValueError(f"slot_scan: a fault model (victim_slots "
+                         f"{p.victim_slots}) runs with faults=1")
+    fm = None
+    if p.victim_slots > 0:   # the seed enters only through the keys
+        fm = FaultModel(hammer_threshold=p.hammer_threshold,
+                        hammer_flip_fp=p.hammer_flip_fp, weak_fp=p.weak_fp,
+                        retention_ticks=p.retention_ticks,
+                        victim_slots=p.victim_slots)
+        keys = ((u32(p.kh0), u32(p.kh1)), (u32(p.kw0), u32(p.kw1)))
+        st.faults = init_fault_state(fm, p.n_banks, B, dev)
+    kp = (u32(p.kp0), u32(p.kp1))
+    # para_rand is drawn on the fault path only (p.faults, which the
+    # engine sets for a table that loads it), and only for tables that
+    # load it; elsewhere it loads 0, as in every kernel instantiation
+    para = bool(p.faults) and tables is not None and bool(
+        (tables[:, 1:, 0] == smcprog.OP_PARA_RAND).any())
 
     for _ in range(p.slots):
         _issue_frontier(st, kind, delta, dep, W, upto=4)
@@ -321,13 +344,19 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
 
         # ---- scheduling decision (two-level argmin, ties to lane 0..)
         hit_now = torch.gather(st.bank["open_row"], 1, q_bank.long()) == q_row
+        mit = None
         if tables is not None:
             is_write = torch.gather(kind, 1, qidx) == WRITE
+            zero = torch.zeros_like(q_t)
+            hct = zero if fm is None else torch.gather(
+                st.faults["hct"], 1, q_bank.long())
+            pr = para_bits(kp, q_bank, q_row, st.dram_now) if para else zero
             envm = _policy_env(q_t, q_bank, q_row, is_write, visible,
                                hit_now, st.bank["ready"], st.dram_now,
-                               st.last_bank, p.n_banks)
+                               st.last_bank, p.n_banks, hct, pr)
             out = smcprog.evaluate_table(tables, envm)
             qslot = smcprog.select_slot_table(out[:, 0], out[:, 1], visible)
+            mit = at_index(out[:, 2], qslot) != 0
         else:
             key_all = torch.where(visible, q_t, BIG)
             key_hit = torch.where(visible & hit_now, q_t, BIG)
@@ -354,11 +383,21 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         resp_t = _mul_div(t_done, p.scale_num, FP) + p.mc_lat
         resp_t = torch.maximum(resp_t, decision_t + mc_issue)
 
+        refreshed = do & (nbs["refs_done"] != st.bank["refs_done"])
         # the transition differs from the old state only at bank b and
         # in the channel scalars, so a per-row select merges it
         st.bank = {k: torch.where(do.view(-1, *([1] * (v.dim() - 1))),
                                   nbs[k], v)
                    for k, v in st.bank.items()}
+        if fm is not None:
+            # the fault carry, and a fired mitigation's ticks on bank b
+            st.faults, extra = apply_slot(
+                fm, p.n_rows, p.tREFI, p.mit_ticks, st.faults, do=do,
+                hit=hit, bank=b, row=at_index(row, pick),
+                kind=at_index(kind, pick), t_start=dram_req_t,
+                refreshed=refreshed, mitigate=mit, keys=keys)
+            _scatter_(st.bank["ready"], b,
+                      at_index(st.bank["ready"], b) + extra)
         _scatter_(st.t_resp, pick,
                   torch.where(do, resp_t, at_index(st.t_resp, pick)))
         _scatter_(st.queue, qslot,
@@ -393,4 +432,6 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     out = {f: v.to(torch.int32) for f, v in zip(STAT_FIELDS, vals)}
     out["t_resp"] = t_resp
     out["t_issue"] = st.t_issue
+    if fm is not None:
+        out.update(fault_result_fields(st.faults))
     return out

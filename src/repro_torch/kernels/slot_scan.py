@@ -13,7 +13,13 @@ shared memory or, where that does not fit, in global scratch allocated
 here.
 :class:`ScanParams` holds the group's host-computed scalars (computed in
 Python ints and floats exactly as the reference does, never in device
-float); its field order is the kernel's ``ScanParams`` struct. The plain
+float); its field order is the kernel's ``ScanParams`` struct followed
+by its ``FaultParams``: the fault model's scalars and the threefry stream
+keys, derived on the host (``core.threefry``) so that the device runs
+only the per-slot part of each chain. A group with a fault model, or with
+a policy table that loads ``para_rand``, runs the fault path
+(``faults=1``: the fast instantiation's fault kernel); its outputs gain
+the fault fields with a fault model. The plain
 version is ``repro_torch.kernels.ref.slot_scan_ref``.
 """
 from __future__ import annotations
@@ -24,6 +30,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.faults import (DOMAIN_PARA, FAULT_LOGS, FAULT_SCALARS,
+                                     domain_key)
+from repro_torch.core.threefry import as_int32
+
 FAST_Q = 64        # SCAN_MAX_Q in slot_scan.cu
 FAST_BANKS = 64    # SCAN_MAX_BANKS
 FAST_TABLE = 256   # REPRO_VM_MAX_L in policy_vm.cuh
@@ -31,6 +41,8 @@ RESP_RING = 1024   # SCAN_RESP_RING: the fast instantiation's t_resp ring
 
 STAT_FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
                "smc_fpga_cycles")
+# the PARA stream key of seed 0: para_rand's key without a fault model
+PARA_KEY0 = tuple(as_int32(w) for w in domain_key(0, DOMAIN_PARA))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +72,23 @@ class ScanParams:
     tRFC: int
     tREFI: int
     tRC_CLONE: int
+    # the fault path, which the engine takes for a fault model or a table
+    # that loads para_rand; off it (0) hammer_ct and para_rand load 0 in
+    # both instantiations and in the plain engine
+    faults: int = 0
+    hammer_threshold: int = 0
+    hammer_flip_fp: int = 0
+    weak_fp: int = 0
+    retention_ticks: int = 0
+    victim_slots: int = 0   # the victim log's length; 0 = no fault model
+    mit_ticks: int = 0      # a fired mitigation's extra ticks on the bank
+    # threefry stream keys (hammer, weak, PARA) as int32 bit patterns
+    kh0: int = 0
+    kh1: int = 0
+    kw0: int = 0
+    kw1: int = 0
+    kp0: int = PARA_KEY0[0]
+    kp1: int = PARA_KEY0[1]
 
     def as_ints(self):
         return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
@@ -81,13 +110,22 @@ def instantiation(p: ScanParams) -> str:
     return "fast" if fast else "wide"
 
 
+def variant(p: ScanParams, n_scratch: int = 0) -> str:
+    """The launch's name in ``ops.variants()``: ``fast``, ``fast-faults``,
+    ``wide-shared`` or ``wide-global``."""
+    if instantiation(p) == "fast":
+        return "fast-faults" if p.faults else "fast"
+    return "wide-global" if n_scratch else "wide-shared"
+
+
 def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                    tables: Optional[torch.Tensor], costs: torch.Tensor,
                    p: ScanParams) -> dict:
     """Launch the kernel on the current stream. Trace arrays ``[B, N]``
     int32, ``weak`` ``[B, N]`` int8 or None, ``tables`` ``[B, L + 1, 4]``
     int32 or None, ``costs`` ``[B, 2]`` int32 (counter_inc, smc_latency).
-    Returns the seven output fields as CUDA tensors."""
+    Returns the seven output fields as CUDA tensors, and the seven fault
+    fields when ``p.victim_slots > 0``."""
     from repro_torch.kernels import ops
     dev = kind.device
     if dev.type != "cuda":
@@ -99,6 +137,9 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
             f"cannot run either: queue >= 2 (got {p.q}), window <= queue "
             f"(got {p.window}), banks >= 1 (got {p.n_banks}), table >= 0 "
             f"(got {p.table_len}), tREFI >= 1 (got {p.tREFI})")
+    if p.victim_slots < 0 or (p.victim_slots > 0 and not p.faults):
+        raise ValueError(f"slot_scan: a fault model (victim_slots "
+                         f"{p.victim_slots}) runs with faults=1")
     shape = (p.batch, p.n)
     for nm, t in (("kind", kind), ("bank", bank), ("row", row),
                   ("delta", delta), ("dep", dep)):
@@ -118,6 +159,12 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     t_resp = torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev)
     stats = torch.zeros((p.batch, len(STAT_FIELDS)), dtype=torch.int32,
                         device=dev)
+    fstats = vlog = None
+    if p.victim_slots > 0:
+        fstats = torch.zeros((p.batch, len(FAULT_SCALARS)),
+                             dtype=torch.int32, device=dev)
+        vlog = torch.full((p.batch, len(FAULT_LOGS), p.victim_slots), -1,
+                          dtype=torch.int32, device=dev)
     if p.batch > 0:   # an empty batch launches nothing and counts nothing
         params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
         ptr = ops.ptr
@@ -125,10 +172,10 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         tables = ops.aligned16(tables)   # the kernel loads rows as int4
         args = [params, ptr(kind), ptr(bank), ptr(row), ptr(delta), ptr(dep),
                 ptr(weak), ptr(tables), ptr(costs), ptr(t_issue),
-                ptr(t_resp), ptr(stats)]
+                ptr(t_resp), ptr(stats), ptr(fstats), ptr(vlog)]
         if instantiation(p) == "fast":
             err = lib.slot_scan_launch(*args, ops.stream_handle(dev))
-            ops.check_launch("slot_scan", err, "fast")
+            ops.check_launch("slot_scan", err, variant(p))
         else:
             n_scratch = lib.slot_scan_wide_scratch_ints(params)
             if n_scratch < 0:
@@ -138,9 +185,11 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                 if n_scratch else None
             err = lib.slot_scan_wide_launch(*args, ptr(scratch),
                                             ops.stream_handle(dev))
-            ops.check_launch("slot_scan", err,
-                             "wide-global" if n_scratch else "wide-shared")
+            ops.check_launch("slot_scan", err, variant(p, n_scratch))
     out = {f: stats[:, i] for i, f in enumerate(STAT_FIELDS)}
     out["t_resp"] = t_resp
     out["t_issue"] = t_issue
+    if fstats is not None:
+        out.update({f: fstats[:, i] for i, f in enumerate(FAULT_SCALARS)})
+        out.update({f: vlog[:, i] for i, f in enumerate(FAULT_LOGS)})
     return out

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.core import emulator, smcprog
+from repro_torch.core import emulator, smcprog, techniques, traces
 from repro_torch.core.bloom import BloomFilter, words_tensor
+from repro_torch.core.faults import FAULT_LOGS, FAULT_SCALARS, FaultModel
 from repro_torch.core.timescale import JETSON_NANO
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -24,7 +25,8 @@ from repro_torch.kernels.policy_vm import policy_vm_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import (FAST_BANKS, FAST_Q, FAST_TABLE,
                                            RESP_RING, ScanParams,
-                                           instantiation, slot_scan_cuda)
+                                           instantiation, slot_scan_cuda,
+                                           variant)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -197,6 +199,46 @@ SCAN_CASES = {
     "keys-past-big": {"delta_scale": 1 << 24},
 }
 
+# The fault path (faults=1): the fast instantiation's legacy and policy
+# variants (frfcfs, PARA and TRR rows) with both processes; each process
+# alone; a one-entry victim log under a flip on every activation and READ
+# (the log overflows, the counts go on); a hammer threshold of 2 with a
+# REF every 61 ticks (crossings on the slots of all-bank REFs, whose reset
+# comes first); PARA without a fault model (seed 0, no fault outputs); the
+# wide instantiation (window 80, 128 banks) with faults, legacy and
+# policy; issue times past BIG (2^30) with faults, legacy (a free lane
+# may win and request 0 is served, its weak-cell flag drawn there) and
+# with mitigation programs that fire on every decision they can (PARA
+# always, TRR from a count of 1), since few decisions come before BIG.
+CARD_FM = dict(seed=3, hammer_threshold=8, hammer_flip_fp=30000,
+               weak_fp=16000, retention_ticks=30, victim_slots=16)
+TUNED = dict(para_fp=3277, trr_threshold=4)
+FAULT_CASES = {
+    "faults-legacy": {"fault": {}},
+    "faults-policy": {"fault": {"hammer_threshold": 3}, "table": 8,
+                      "mitigation": True, "B": 6, "nots": 1},
+    "faults-hammer-only": {"fault": {"weak_fp": 0, "hammer_threshold": 3}},
+    "faults-retention-only": {"fault": {"hammer_threshold": 0}},
+    "faults-log-overflow": {"fault": {
+        "victim_slots": 1, "hammer_threshold": 1, "hammer_flip_fp": 65536,
+        "weak_fp": 65536, "retention_ticks": 0}},
+    "faults-crossing-on-ref": {"fault": {"hammer_threshold": 2},
+                               "table": 8, "mitigation": True, "B": 6,
+                               "params": {"tREFI": 61, "tRFC": 41}},
+    "para-no-fault-model": {"table": 8, "mitigation": True, "B": 6,
+                            "nots": 1},
+    "faults-wide-q80": {"fault": {}, "window": 80, "n": 256, "slots": 600},
+    "faults-wide-banks128-policy": {"fault": {"hammer_threshold": 3},
+                                    "banks": 128, "n": 256,
+                                    "slots": 600, "table": 8,
+                                    "mitigation": True, "B": 6, "nots": 1},
+    "faults-keys-past-big": {"fault": {}, "B": 6, "delta_scale": 1 << 24},
+    "faults-keys-past-big-table": {"fault": {}, "table": 8, "B": 6,
+                                   "mitigation": {"para_fp": 65536,
+                                                  "trr_threshold": 1},
+                                   "delta_scale": 1 << 24},
+}
+
 # The shapes past the fast instantiation, which the reference runs too:
 # a queue just past it (65) and well past (100); windows at the fast
 # ring's size (1016: a full 1016-lane queue in a 1024-entry ring) and past
@@ -228,9 +270,13 @@ WIDE_CASES = {
 
 def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
               weak=False, nots=0, far_deps=0, nop_rows=(), real=None,
-              params=None, delta_scale=1, dep_max=3):
+              params=None, delta_scale=1, dep_max=3, fault=None,
+              mitigation=False):
     """Seeded inputs of one slot-scan group; the queue has
-    ``max(window, 2)`` lanes, as the engine sizes it."""
+    ``max(window, 2)`` lanes, as the engine sizes it. ``fault``: the
+    fault model's fields over ``CARD_FM`` (None: none); ``mitigation``:
+    the tables cycle the tuned mitigation programs (frfcfs, PARA, TRR), or
+    those of the given ``mitigation_programs`` settings."""
     rng = np.random.RandomState(0)
     kind, bank, row, delta, dep = (
         rng.randint(0, 5, (B, n)), rng.randint(0, banks, (B, n)),
@@ -254,13 +300,21 @@ def scan_case(dev, B=4, n=64, window=4, banks=16, slots=200, table=0,
     if weak:
         w = torch.from_numpy(rng.randint(0, 2, (B, n)).astype(np.int8)).to(dev)
         p = dataclasses.replace(p, use_weak=1)
+    progs = []
     if table:
         progs = list(smcprog.builtin_programs().values())
+        if mitigation:
+            progs = list(smcprog.mitigation_programs(
+                **(TUNED if mitigation is True else mitigation)).values())
         if table > FAST_TABLE:
             progs = [long_program(table // 2 + 8)] + progs
         progs = [progs[i % len(progs)] for i in range(B)]
         tables = torch.from_numpy(smcprog.pack_stack(progs, table)).to(dev)
         p = dataclasses.replace(p, table_len=table)
+    fm = None if fault is None else FaultModel(**{**CARD_FM, **fault})
+    para = any(q.uses(smcprog.OP_PARA_RAND) for q in progs)
+    p = dataclasses.replace(p, **emulator._fault_params(
+        JETSON_NANO.with_faults(fm), para))
     return args, w, tables, costs, p
 
 
@@ -288,6 +342,130 @@ def test_slot_scan_kernel_matches_plain(cuda_device, variant):
         assert torch.equal(got[f].cpu(), want[f]), f
     if variant == "drain-early":   # the budget outlasts every row
         assert int(want["served"].sum()) == int((args[0] != 4).sum())
+
+
+def ref_decided_activations(monkeypatch):
+    """Count, per slot of the plain engine's next run, the activations
+    served on the slot of an all-bank REF whose bank counter would reach
+    the hammer threshold if the REF's reset did not come first (the order
+    decides whether they cross); returns the list it fills."""
+    seen = []
+    real = ref.apply_slot
+
+    def spy(fm, n_rows, tREFI, mit_ticks, fstate, **kw):
+        stale = torch.gather(fstate["hct"], 1,
+                             kw["bank"].long().unsqueeze(1)).squeeze(1) + 1
+        seen.append(int((kw["do"] & ~kw["hit"] & kw["refreshed"]
+                         & (stale >= fm.hammer_threshold)).sum()))
+        return real(fm, n_rows, tREFI, mit_ticks, fstate, **kw)
+
+    monkeypatch.setattr(ref, "apply_slot", spy)
+    return seen
+
+
+def para_score_case(dev, banks):
+    """A policy group whose first program scores by para_rand (the draws
+    order the service) beside one scoring by a constant 0, and the same
+    group's scalars on (faults=1) and off (faults=0) the fault path."""
+    args, _, _, costs, p = scan_case(dev, banks=banks, n=128, slots=300,
+                                     table=8, nots=1)
+    progs = []
+    for score in ("para_rand", "zero"):
+        b = smcprog.PolicyBuilder()
+        v = b.para_rand() if score == "para_rand" else b.const(0)
+        progs.append(b.build(score=v, boost=b.score_row_hit(), name=score))
+    progs = [progs[i % 2] for i in range(p.batch)]
+    tables = torch.from_numpy(smcprog.pack_stack(progs, 8)).to(dev)
+    on = dataclasses.replace(p, **emulator._fault_params(JETSON_NANO, True))
+    return args, tables, costs, on, dataclasses.replace(on, faults=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banks", [16, 128])
+def test_slot_scan_para_rand_on_and_off_the_fault_path(cuda_device, banks):
+    """``ScanParams.faults`` decides whether para_rand is drawn, alike in
+    the fast and the wide instantiation and in the plain engine: on the
+    fault path the kernel draws as the plain engine does, off it both load
+    0 (the engine never runs such a table off it)."""
+    args, tables, costs, on, off = para_score_case(cuda_device, banks)
+    cpu = [t.cpu() for t in (*args, tables, costs)]
+    outs = {}
+    for name, p in (("on", on), ("off", off)):
+        ops.reset_launches()
+        got = ops.slot_scan(*args, None, tables, costs, p)
+        torch.cuda.synchronize()
+        assert ops.variants() == {f"slot_scan/{variant(p)}": 1}
+        want = ref.slot_scan_ref(*cpu[:5], None, *cpu[5:], p)
+        assert set(got) == set(want)
+        for f in want:
+            assert torch.equal(got[f].cpu(), want[f]), (name, f)
+        outs[name] = want
+    assert not torch.equal(outs["on"]["t_resp"], outs["off"]["t_resp"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FAULT_CASES))
+def test_slot_scan_fault_path_matches_plain(cuda_device, case, monkeypatch):
+    """Every output field, the fault fields included, equal to the plain
+    engine's; the variant that ran is the fault path's."""
+    c = FAULT_CASES[case]
+    args, weak, tables, costs, p = scan_case(cuda_device, **c)
+    assert p.faults == 1
+    ops.reset_launches()
+    got = ops.slot_scan(*args, weak, tables, costs, p)
+    torch.cuda.synchronize()
+    assert ops.variants() == {f"slot_scan/{variant(p)}": 1}
+    assert variant(p).startswith("wide" if "wide" in case else "fast-faults")
+    cpu = [None if t is None else t.cpu()
+           for t in (*args, weak, tables, costs)]
+    ref_first = []
+    if case == "faults-crossing-on-ref":
+        ref_first = ref_decided_activations(monkeypatch)
+    want = ref.slot_scan_ref(*cpu, p)
+    assert set(got) == set(want)
+    for f in want:
+        assert torch.equal(got[f].cpu(), want[f]), f
+    if "fault" not in c:
+        assert not set(FAULT_SCALARS) & set(got)
+        return
+    assert set(FAULT_SCALARS + FAULT_LOGS) <= set(got)
+    if case == "faults-crossing-on-ref":
+        # the case occurs: activations on the slot of an all-bank REF
+        # whose counter would have crossed but for the REF's reset first
+        assert sum(ref_first) > 0
+    else:
+        assert int(want["flips"].sum()) > 0
+    if case == "faults-log-overflow":
+        assert int(want["flips"].min()) > 1
+    if c.get("mitigation"):
+        assert int(want["mitigations"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fault_entry_points_on_the_card(cuda_device):
+    """The RowHammer study (both policy axes) and a wide fault group
+    through the entry points with the default device (CUDA), against the
+    same calls on the CPU; every launch took the fault path."""
+    fm = FaultModel(**CARD_FM)
+    study = techniques.RowHammerMitigationStudy(JETSON_NANO, fault_model=fm)
+    for axis in (True, False):
+        ops.reset_launches()
+        got = study.evaluate(n_requests=200, policy_axis=axis)
+        variants = ops.variants()
+        assert set(variants) == {"slot_scan/fast-faults"}, variants
+        assert got == study.evaluate(n_requests=200, policy_axis=axis,
+                                     device="cpu")
+    sys_ = dataclasses.replace(JETSON_NANO, window=80).with_faults(fm)
+    tr = traces.rowhammer_trace(300, sys_.geometry, intensity=0.6, seed=2)
+    ops.reset_launches()
+    got = emulator.run_many([tr, tr], sys_)
+    assert set(ops.variants()) == {"slot_scan/wide-shared"}
+    want = emulator.run_many([tr, tr], sys_, device="cpu")
+    for a, b in zip(got, want):
+        assert int(a["flips"]) > 0
+        for f in ("exec_cycles", "served", "t_resp") + FAULT_SCALARS \
+                + FAULT_LOGS + ("bit_error_rate",):
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
 
 
 class UncheckedProgram(smcprog.PolicyProgram):

@@ -4,7 +4,7 @@ seeded traces: run / run_many / run_policies / Campaign and the two case
 studies, exactly on every int output (and so on the host-derived
 ``exec_seconds`` and ``avg_load_latency_cycles``). Plus the guards: the
 port imports neither JAX nor the reference package, never runs on the
-CPU unasked, and refuses what this slice does not port."""
+CPU unasked, and refuses what it does not port yet."""
 import dataclasses
 import os
 import subprocess
@@ -20,7 +20,7 @@ from repro.core.policysearch import random_program
 from repro.core.timescale import JETSON_NANO as JN, PIDRAM_LIKE as JPIDRAM
 
 from repro_torch import interop
-from repro_torch.core import emulator as pe, smcprog as psmc
+from repro_torch.core import emulator as pe
 from repro_torch.core import techniques as ptech
 from repro_torch.core.campaign import Campaign as PCampaign
 from repro_torch.core.dram import Geometry as PGeometry
@@ -223,13 +223,17 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_unported_features_raise():
+    """Fault injection is ported (tests/test_torch_faults.py); the
+    campaign's checkpoint and error options (Queue A 9) are not."""
     _, pt = pair(grid_trace(0, 20))
     psys = port_sys(JN)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        pe.run(pt, psys.with_faults(PFault(seed=1, hammer_threshold=8)),
-               device=CPU)
-    with pytest.raises(NotImplementedError, match="para_rand"):
-        pe.run_policies(pt, psys, [psmc.para_program()], device=CPU)
+    study = ptech.RowHammerMitigationStudy(
+        psys, fault_model=PFault(seed=1, hammer_threshold=8))
+    with pytest.raises(NotImplementedError, match="Queue A 9"):
+        study.evaluate(n_requests=20, device=CPU, checkpoint="ckpt")
+    assert "flips" in pe.run(
+        pt, psys.with_faults(PFault(seed=1, hammer_threshold=8)),
+        device=CPU)
     with pytest.raises(ValueError, match="banks"):
         bad = interop.trace_from_arrays([0], [16], [0], [1])
         pe.run(bad, psys, device=CPU)

@@ -15,9 +15,12 @@ each side's ``-Xptxas -v`` frame (registers, stack) is printed. Then:
 
 - ``slot_scan`` on the main path's own groups (the RowClone 4 MiB copy
   study, four PolyBench traces in ``ts`` mode, the built-in policy
-  sweep), recorded through the engine's entry points: every output field
-  of the two sides must be equal, and each group is timed on both (CUDA
-  events over back-to-back launches spanning at least 10 ms a turn,
+  sweep) and on ``chip_smoke.py`` phase 7b's two full-size fault groups
+  (the RowHammer study's 16 x 131072 policy group and its storms as a
+  legacy group with the fault model), recorded through the engine's
+  entry points: every output field of the two sides must be equal, the
+  fault fields included, and each group is timed on both (CUDA events
+  over back-to-back launches spanning at least 10 ms a turn,
   ``--scan-rounds`` rounds of base, port, port, base): the median and
   the spread of each side's ns per slot;
 - ``bloom_probe`` at the main path's shape (the paper's 2^20-bit, k = 4
@@ -52,9 +55,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("slot_scan", "bloom_probe", "policy_vm", "rowclone_copy")
-PRE_FAULT_PARAMS = 24   # ints in ScanParams before the fault path
 FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
           "smc_fpga_cycles", "t_resp", "t_issue")
+FAULT_FIELDS = ("flips", "ham_flips", "ret_flips", "mitigations",
+                "victim_bank", "victim_row", "victim_t")
 
 
 def cuda_ms(torch, fn, reps):
@@ -99,17 +103,12 @@ def build_base(ops, base, out_dir):
                    capture_output=True)
     lib = ctypes.CDLL(so)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    # the base's slot_scan_launch: 12 pointers in a base from before the
-    # fault path (a 24-int parameter block), 14 since (two fault outputs,
-    # null for a fault-free group). The 12-pointer form serves only an A/B
-    # against the commit before the fault path: drop it with the next
-    # change to this harness.
-    lib.slot_scan_num_params.restype = ctypes.c_int
-    n_ptrs = 12 if lib.slot_scan_num_params() == PRE_FAULT_PARAMS else 14
+    # the base's slot_scan_launch: params, 8 inputs, 5 outputs (t_issue,
+    # t_resp, stats, and the fault counters and log, null without a fault
+    # model), the stream
     lib.slot_scan_launch.argtypes = [ctypes.POINTER(ctypes.c_int)] \
-        + [vp] * n_ptrs
+        + [vp] * 14
     lib.slot_scan_launch.restype = ctypes.c_int
-    lib.n_scan_outputs = n_ptrs - 9
     lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
     lib.rowclone_copy_launch.restype = ctypes.c_int
     i = ctypes.c_int
@@ -301,6 +300,19 @@ def record_groups(torch, dev, ops):
     ops.slot_scan = rec
     try:
         jn = timescale.JETSON_NANO
+        sys.path.insert(0, ROOT)
+        import chip_smoke
+        from repro_torch.core import faults
+        fm = faults.FaultModel(**chip_smoke.STUDY_FM)
+        tag[0] = "faults-study"
+        techniques.RowHammerMitigationStudy(jn, fault_model=fm).evaluate(
+            chip_smoke.STUDY_INTENSITIES,
+            n_requests=chip_smoke.STUDY_REQUESTS, device=dev)
+        tag[0] = "faults-legacy"
+        emu.run_many([traces.rowhammer_trace(
+            chip_smoke.STUDY_REQUESTS, jn.geometry, intensity=x, seed=i)
+            for i, x in enumerate(chip_smoke.STUDY_INTENSITIES)],
+            jn.with_faults(fm), device=dev)
         tag[0] = "rowclone-copy"
         techniques.RowClone(jn).evaluate_batch([4 << 20], workload="copy",
                                                device=dev)
@@ -324,15 +336,22 @@ def base_scan(torch, ops, lib, args):
     t_issue = torch.zeros(shape, dtype=torch.int32, device=dev)
     t_resp = torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev)
     stats = torch.zeros((p.batch, 5), dtype=torch.int32, device=dev)
+    fstats = vlog = None
+    if p.victim_slots > 0:
+        fstats = torch.zeros((p.batch, 4), dtype=torch.int32, device=dev)
+        vlog = torch.full((p.batch, 3, p.victim_slots), -1,
+                          dtype=torch.int32, device=dev)
     params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
-    outs = [ops.ptr(t_issue), ops.ptr(t_resp), ops.ptr(stats)]
-    outs += [None] * (lib.n_scan_outputs - len(outs))
+    outs = [ops.ptr(t) for t in (t_issue, t_resp, stats, fstats, vlog)]
     err = lib.slot_scan_launch(params, *[ops.ptr(a) for a in args[:8]],
                                *outs, ops.stream_handle(dev))
     if err:
         raise RuntimeError(f"base slot_scan launch failed: {err}")
     out = {f: stats[:, i] for i, f in enumerate(FIELDS[:5])}
     out.update(t_resp=t_resp, t_issue=t_issue)
+    if fstats is not None:
+        out.update({f: fstats[:, i] for i, f in enumerate(FAULT_FIELDS[:4])})
+        out.update({f: vlog[:, i] for i, f in enumerate(FAULT_FIELDS[4:])})
     return out
 
 
@@ -372,7 +391,8 @@ def main(argv=None):
         p = a[-1]
         want = base_scan(torch, ops, lib, a)
         torch.cuda.synchronize()
-        same = all(torch.equal(got[f], want[f]) for f in FIELDS)
+        same = set(got) == set(want) and all(
+            torch.equal(got[f], want[f]) for f in want)
         ok = ok and same
         fns = {"port": lambda: ops.slot_scan(*a),
                "base": lambda: base_scan(torch, ops, lib, a)}

@@ -7,7 +7,8 @@ Usage (from the repository root, on a machine with an NVIDIA H100)::
 
 Phases, one line each:
 
-1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the CUDA kernels from the five sources in
+   ``src/repro_torch/kernels/csrc``;
 2. ``bloom_probe`` kernel against its plain version (the reference test
    grid, every global row id through the paper-size filter, and
    ``BLOOM_CASES``);
@@ -48,6 +49,20 @@ Phases, one line each:
    five intensities, 131072 requests a trace): each arm's bit-error rate
    and slowdown, and the fault groups' ns per slot beside the same rows
    run with ``faults=None``;
+7c. the stream path: with the counters reset just before it,
+   ``run_stream_many`` over 8 ``synthetic_stream``s of 125000 requests
+   (chunk 16384, ``JETSON_NANO``, ``ts``, ``collect='full'``: the repo's
+   streaming configuration), each stream equal on every field to
+   single-shot ``run_many`` of the same traces; requests/s of both, the
+   window kernel's ns per request beside the single-shot kernel's, host
+   ms per window by part, and peak device memory at 62500 and 125000
+   requests a stream (equal); every window of the cut cases
+   (``WINDOW_CASES``: legacy, policy tables, PARA without a fault model,
+   the fault model, Bloom filters shared and stacked, the wide
+   instantiation, a chunk equal to the halo, streams that drain early)
+   against the plain window step (CPU worker processes); a 262144-line
+   gzip trace file through an LLC, streamed, against ``load_trace_file``
+   + ``run``; a Campaign mixing stream and batched points;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
@@ -74,8 +89,9 @@ Device ms per launch comes from a profiled window of back-to-back calls
 at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
 shows no launch; each entry names its method.
 
-The engine's entry points launch ``bloom_probe`` and ``slot_scan``, the
-serving engine ``flash_attention`` and ``rowclone_copy``; the
+The engine's entry points launch ``bloom_probe`` and ``slot_scan`` (a
+stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``),
+the serving engine ``flash_attention`` and ``rowclone_copy``; the
 policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
@@ -106,10 +122,13 @@ REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe.py:21",
     "policy_vm": "src/repro/kernels/policy_vm.py:31",
     "slot_scan": "src/repro/core/emulator.py:531",
+    "slot_scan_window": "src/repro/core/emulator.py:1645",
     "flash_attention": "src/repro/kernels/flash_attention.py:21",
     "rowclone_copy": "src/repro/kernels/rowclone_copy.py:18",
 }
-SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+# the window entry is slot_scan.cu's fourth instantiation flag (kStream)
+SOURCES = {name: "src/repro_torch/kernels/csrc/"
+                 f"{'slot_scan' if name == 'slot_scan_window' else name}.cu"
            for name in REPLACES}
 FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
           "smc_fpga_cycles", "t_resp", "t_issue")
@@ -117,7 +136,7 @@ PATH_KERNELS = ("bloom_probe", "slot_scan")   # launched by the entry points
 N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
 SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
 PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
-MAX_WORKERS = 8           # CPU worker processes of phases 4b, 7 and 7b
+MAX_WORKERS = 8           # CPU worker processes of phases 4b, 7, 7b and 7c
 # phase 7b: the study's fault model with retention switched on, its
 # intensities and its requests a trace (the size of the main path's
 # largest RowClone group); FAULT_CUT requests a trace at the cut, whose
@@ -150,6 +169,33 @@ BLOOM_CASES = [(1, 1, 1 << 10, 1, False), (16, 16384, 1 << 20, 4, False),
                (33, 7, 1 << 21, 5, True), (1, 100003, 1 << 14, 2, False),
                (16, 2049, 1 << 20, 6, True), (2, 333, 1 << 12, 7, False),
                (3, 5, 32, 4, False), (1, 18, 64, 2, True)]
+# phase 7c: the stream path at the repo's streaming configuration
+# (benchmarks/paper.py bench_streaming): 8 synthetic streams of 125000
+# requests, windows of 16384, JETSON_NANO, ts; a 262144-line gzip trace
+# file through an LLC
+STREAM_N, STREAM_REQUESTS, STREAM_CHUNK = 8, 125000, 16384
+TRACE_FILE_LINES = 262144
+# phase 7c and the card tests: stream cuts held window by window against
+# the plain window step, (requests a stream, chunk) and the case's knobs:
+# the fault model (STUDY_FM) with storm traces, policy tables (built-in or
+# mitigation programs, one per stream), a Bloom filter shared or one per
+# stream, the window and banks of the wide instantiation, a chunk equal to
+# the halo, and streams that drain in an interior window
+WINDOW_CUT, WINDOW_CUT_CHUNK = 3000, 256
+WINDOW_CASES = {
+    "legacy": {},
+    "policy": {"tables": "builtin"},
+    "para-no-fault-model": {"tables": "mitigation"},
+    "faults-legacy": {"fault": True},
+    "faults-policy": {"fault": True, "tables": "mitigation"},
+    "bloom-shared": {"bloom": "shared"},
+    "bloom-stacked": {"bloom": "stacked", "tables": "builtin"},
+    "wide-q80-banks128": {"window": 80, "banks": 128},
+    "wide-q80-banks128-faults": {"window": 80, "banks": 128, "fault": True,
+                                 "tables": "mitigation"},
+    "chunk-equals-halo": {"chunk": "halo", "n": 400},
+    "drain-in-interior-window": {"lengths": (1.0, 0.2, 0.01, 0.0)},
+}
 VM_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)   # phase 3
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
@@ -240,16 +286,21 @@ def turns_ms(fns, reps, rounds=3):
 
 class Recorder:
     """Wraps the engine's kernel routing. ``record()`` keeps the largest
-    ``bloom_probe`` inputs (``bloom_args``) and every ``slot_scan`` group
+    ``bloom_probe`` inputs (``bloom_args``), every ``slot_scan`` group
     (its study's tag, inputs and host outputs), checking each group's
-    service as it comes; ``plain()`` sends CUDA tensors to the plain
-    versions instead."""
+    service as it comes, and every ``slot_scan_window`` launch apart from
+    them (``windows``: tag, inputs and the state it returned), checking
+    each window's service: an interior window has served every request
+    it retires and carried its frontier to the window's end, the final
+    one has served every request and emptied its queue. ``plain()`` sends
+    CUDA tensors to the plain versions instead."""
 
     def __init__(self, ops, ref, nop, big):
         self.ops, self.ref, self.nop, self.big = ops, ref, nop, big
         self.orig = {name: getattr(ops, name) for name in ops.KERNELS}
         self.bloom_args = None
         self.groups = []
+        self.windows = []
         self.tag = ""
 
     def record(self):
@@ -273,12 +324,36 @@ class Recorder:
                 f: v.cpu().numpy() for f, v in out.items()}})
             return out
 
+        def ssw(st, kind, *rest):
+            out = o["slot_scan_window"](st, kind, *rest)
+            p, final = rest[-2], rest[-1]
+            # the window's chunk, from its slot budget
+            # (emulator.stream_slot_budget)
+            chunk = (p.slots - 12) // 2 - max(p.window, 2)
+            real = kind != self.nop
+            served = out.t_resp < self.big
+            if final:
+                check(bool(served[real].all())
+                      and bool((out.queue < 0).all())
+                      and bool((out.ptr == p.n).all()),
+                      f"{self.tag}: the final window left a request unserved")
+            else:
+                check(bool(served[:, :chunk][real[:, :chunk]].all())
+                      and bool((out.ptr > p.n - 4).all()),
+                      f"{self.tag}: a window retires an unserved request")
+            self.windows.append({"tag": self.tag,
+                                 "args": (st, kind) + tuple(rest),
+                                 "out": out})
+            return out
+
         self.ops.bloom_probe, self.ops.slot_scan = bp, ss
+        self.ops.slot_scan_window = ssw
 
     def plain(self):
         r = self.ref
         self.ops.bloom_probe = r.bloom_probe_ref
         self.ops.slot_scan = r.slot_scan_ref
+        self.ops.slot_scan_window = r.slot_scan_window_ref
         self.ops.policy_vm = r.policy_vm_ref
 
     def restore(self):
@@ -351,6 +426,99 @@ def long_program(smcprog, n_ops, name="long"):
     for _ in range((n_ops - 2) // 4):
         v = b.add(v, b.min_(b.age_rel(), b.const(7)))
     return b.build(score=v, boost=hit, name=name)
+
+
+def window_case(np, emu, smcprog, timescale, traces, faults, name,
+                n=WINDOW_CUT, chunk=WINDOW_CUT_CHUNK):
+    """One ``WINDOW_CASES`` cut: ``(sys, traces, run_stream_many keyword
+    arguments, chunk)``, the traces materialized (seeded) so that the same
+    requests also run single-shot."""
+    c = WINDOW_CASES[name]
+    n = c.get("n", n)
+    sys_ = timescale.JETSON_NANO
+    if "window" in c:
+        sys_ = dataclasses.replace(sys_, window=c["window"], geometry=(
+            dataclasses.replace(sys_.geometry, n_banks=c["banks"])))
+    geo = sys_.geometry
+    lengths = [int(n * x) for x in c.get("lengths", (1.0, 1.0, 1.0))]
+    if c.get("fault"):
+        sys_ = sys_.with_faults(faults.FaultModel(**STUDY_FM))
+        trs = [traces.rowhammer_trace(max(m, 1), geo, intensity=0.9,
+                                      seed=i) for i, m in enumerate(lengths)]
+    else:
+        trs = [emu.Trace(*(np.concatenate([getattr(w, f) for w in ws])
+                           for f in ("kind", "bank", "row", "delta",
+                                     "dep")))
+               for ws in ([w for w in traces.synthetic_stream(
+                   max(m, 1), window=1000, seed=40 + i,
+                   n_banks=geo.n_banks, n_rows=512, kinds=5, dep_max=5)]
+                   for i, m in enumerate(lengths))]
+    trs = [emu.Trace(*(getattr(t, f)[:m] for f in ("kind", "bank", "row",
+                                                   "delta", "dep")))
+           for t, m in zip(trs, lengths)]
+    kw = {}
+    if "tables" in c:
+        progs = list((smcprog.builtin_programs() if c["tables"] == "builtin"
+                      else smcprog.mitigation_programs(
+                          para_fp=3277, trr_threshold=4)).values())
+        progs = [progs[i % len(progs)] for i in range(len(trs))]
+        kw = {"policies": progs,
+              "policy_costs": [p.smc_cycles() for p in progs]}
+    if "bloom" in c:
+        from repro_torch.core.bloom import BloomFilter
+        rng = np.random.RandomState(13)
+        keys = [rng.randint(0, geo.n_banks * 512, 400).astype(np.uint32)
+                for _ in trs]
+        bfs = [BloomFilter.build(k, m_bits=1 << 12, k=3) for k in keys]
+        kw["blooms"] = ((bfs[0].bits, 3, 1 << 12) if c["bloom"] == "shared"
+                        else [(b.bits, 3, 1 << 12) for b in bfs])
+    if c.get("chunk") == "halo":
+        chunk = emu.stream_halo(sys_)
+    return sys_, trs, kw, chunk
+
+
+def state_fields(st):
+    """An ``EmulatorState``'s tensors by name (bank and fault fields
+    flattened)."""
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}.{k}": x for k, x in v.items()})
+        else:
+            out[f.name] = v
+    return out
+
+
+def window_inputs_cpu(args):
+    """A recorded ``slot_scan_window`` call's inputs as CPU copies."""
+    def cpu(v):
+        if isinstance(v, dict):
+            return {k: x.cpu() for k, x in v.items()}
+        return v.cpu() if hasattr(v, "cpu") else v
+
+    st = args[0]
+    return (dataclasses.replace(st, **{f.name: cpu(getattr(st, f.name))
+                                       for f in dataclasses.fields(st)}),
+            ) + tuple(cpu(a) for a in args[1:])
+
+
+def window_errors(ref, calls):
+    """Each recorded window ``(inputs, kernel state)`` through the plain
+    window step on CPU copies: ``{field: largest abs difference}``."""
+    err = {}
+    for args, got in calls:
+        want = state_fields(ref.slot_scan_window_ref(*window_inputs_cpu(
+            args)))
+        got = state_fields(got)
+        if set(got) != set(want):
+            raise CheckFailed(f"slot_scan_window gives fields {sorted(got)}, "
+                              f"the plain step {sorted(want)}")
+        for f, w in want.items():
+            e = int((got[f].cpu().long() - w.long()).abs().max()) \
+                if w.numel() else 0
+            err[f] = max(err.get(f, 0), e)
+    return err
 
 
 def same_results(a, b, label):
@@ -1054,6 +1222,344 @@ def phase_faults(np, torch, ops, ref, emu, techniques, timescale, traces,
                  "timing": timing}
 
 
+def plain_window_job(state, arrays, params, final):
+    """One recorded stream window through the plain window step on the
+    CPU, in a worker process: its state fields and the seconds it took."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.core.state import EmulatorState
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slot_scan import ScanParams
+    torch.set_num_threads(1)
+    t = {k: None if v is None else torch.from_numpy(v)
+         for k, v in arrays.items()}
+    st = EmulatorState.from_host(state)
+    t0 = time.perf_counter()
+    out = ref.slot_scan_window_ref(st, t["kind"], t["bank"], t["row"],
+                                   t["delta"], t["dep"], t["weak"],
+                                   t["tables"], t["costs"],
+                                   ScanParams(**params), final)
+    return ({k: v.numpy() for k, v in state_fields(out).items()},
+            time.perf_counter() - t0)
+
+
+def compare_plain_windows(np, windows):
+    """Every recorded window against the plain window step on the CPU, one
+    window per job in worker processes, on every state field; returns the
+    largest difference (0) and a detail dict."""
+    names = ("kind", "bank", "row", "delta", "dep", "weak", "tables",
+             "costs")
+    jobs = []
+    for w in windows:
+        st, rest = w["args"][0], w["args"][1:]
+        arrays = {n: None if a is None else a.cpu().numpy()
+                  for n, a in zip(names, rest[:8])}
+        jobs.append((w, st.to_host(), arrays,
+                     dataclasses.asdict(rest[8]), bool(rest[9])))
+    # longest first: the plain step's cost is per slot, more with a table
+    # or a fault model
+    jobs.sort(key=lambda j: -j[3]["slots"] * (5 if j[3]["table_len"] else 2)
+              * (3 if j[3]["faults"] else 1))
+    workers = min(len(jobs), len(os.sched_getaffinity(0)), MAX_WORKERS)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(plain_window_job, *j[1:]) for j in jobs]
+        results = [f.result() for f in futs]
+    err = 0
+    for (w, *_), (want, _) in zip(jobs, results):
+        got = {k: v.cpu().numpy() for k, v in state_fields(w["out"]).items()}
+        check(set(got) == set(want), f"{w['tag']}: slot_scan_window and the "
+                                     f"plain step give other fields")
+        for f in want:
+            e = int(np.abs(got[f].astype(np.int64)
+                           - want[f].astype(np.int64)).max()) \
+                if want[f].size else 0
+            err = max(err, e)
+            check(e == 0, f"slot_scan_window != plain window step on {f} in "
+                          f"a {w['tag']} window")
+    cpu_s = sum(t for _, t in results)
+    return err, {"windows": len(jobs), "plain_cpu_s": cpu_s,
+                 "workers": workers, "wall_s": time.perf_counter() - t0}
+
+
+def same_stream(np, got, want, n, label):
+    """A stream's result against single-shot (``want``): every int field,
+    the first n per-request tags, the mean latency and the fault fields."""
+    for f in FIELDS[:5]:
+        check(int(got[f]) == int(want[f]), f"{label}: {f} differs")
+    for f in ("avg_load_latency_cycles", "exec_seconds", "n_requests",
+              "mode"):
+        check(got[f] == want[f], f"{label}: {f} differs")
+    if "t_resp" in got:
+        for f in ("t_resp", "t_issue"):
+            check(np.array_equal(got[f], want[f][:n]), f"{label}: {f} "
+                                                       f"differs")
+    if "flips" in want:
+        for f in ("flips", "ham_flips", "ret_flips", "mitigations",
+                  "victim_bank", "victim_row", "victim_t", "bit_error_rate"):
+            check(np.array_equal(got[f], want[f]), f"{label}: {f} differs")
+
+
+def materialize(np, emu, windows):
+    """One Trace from an iterable of Trace windows."""
+    ws = list(windows)
+    return emu.Trace(*(np.concatenate([getattr(w, f) for w in ws])
+                       for f in ("kind", "bank", "row", "delta", "dep")))
+
+
+def phase_stream(np, torch, ops, ref, emu, smcprog, timescale, traces,
+                 faults, cachesim, campaign):
+    """Phase 7c, the stream path: (i) the repo's streaming configuration
+    at full size through ``run_stream_many`` (counters reset just before),
+    held on every field against single-shot ``run_many`` of the same
+    traces; its rates, the window kernel's ns per request beside the
+    single-shot kernel's, host ms per window by part, and peak device
+    memory at two stream lengths; (ii) ``WINDOW_CASES`` at the cut, each
+    window against the plain window step (CPU workers); (iii) a gzip trace
+    file through an LLC, streamed against ``load_trace_file`` + ``run``;
+    (iv) a Campaign mixing stream and batched points. Returns the largest
+    difference (0), the window kernel's JSON entry and a detail dict."""
+    import gc
+    import gzip
+    import shutil
+    import tempfile
+    jn = timescale.JETSON_NANO
+    geo = jn.geometry
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+
+    def streams(n):
+        return [lambda i=i: traces.synthetic_stream(n, window=STREAM_CHUNK,
+                                                    seed=i)
+                for i in range(STREAM_N)]
+
+    # (i) full size, the counters reset just before
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rec.record()
+    rec.tag = "stream"
+    t0 = time.perf_counter()
+    res = emu.run_stream_many(streams(STREAM_REQUESTS), jn, "ts",
+                              chunk=STREAM_CHUNK, collect="full")
+    torch.cuda.synchronize()
+    stream_wall = time.perf_counter() - t0
+    counts, variants = ops.launches(), ops.variants()
+    windows = list(rec.windows)
+    check(counts["slot_scan_window"] == len(windows) > 1
+          and counts["slot_scan"] == 0,
+          f"phase 7c: the stream path launched {counts}")
+    trs = [materialize(np, emu, traces.synthetic_stream(
+        STREAM_REQUESTS, window=STREAM_CHUNK, seed=i))
+        for i in range(STREAM_N)]
+    rec.tag = "single-shot"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = emu.run_many(trs, jn, "ts")
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    rec.restore()
+    for i, (a, b) in enumerate(zip(res, single)):
+        same_stream(np, a, b, STREAM_REQUESTS, f"stream {i}")
+    total = STREAM_N * STREAM_REQUESTS
+    check(sum(int(r["served"]) for r in res) == total
+          and all(r["t_resp"].shape == (STREAM_REQUESTS,) for r in res),
+          "phase 7c: the streams did not serve every request")
+
+    # the window kernel on its recorded windows beside the single-shot
+    # kernel on its group, each relaunched on its own inputs
+    kern_w = rec.orig["slot_scan_window"]
+    kern_s = rec.orig["slot_scan"]
+    win_ms = [cuda_ms(lambda w=w: kern_w(*w["args"]), reps=2)
+              for w in windows]
+    group = rec.groups[-1]
+    gp = group["args"][-1]
+    single_ms = cuda_ms(lambda: kern_s(*group["args"]), reps=2)
+    rows, _ = profile_rows(torch, lambda: [kern_w(*w["args"])
+                                           for w in windows])
+    hits = [(ms, n) for key, ms, n in rows if "slot_scan_window" in key]
+    prof_n = sum(c for _, c in hits)
+    win_total = sum(ms for ms, _ in hits) if prof_n == len(windows) \
+        else sum(win_ms)
+    win_method = (f"profiler, {prof_n} launches" if prof_n == len(windows)
+                  else f"cuda events, {len(windows)} launches")
+    wp = windows[0]["args"][-2]
+    kernel_cmp = {
+        "window_ms_total": win_total, "window_ms_method": win_method,
+        "windows": len(windows), "window_slots_budget": wp.slots,
+        "window_ns_per_request": win_total * 1e6 / STREAM_REQUESTS,
+        "window_ns_per_budget_slot": win_total * 1e6 / (len(windows)
+                                                        * wp.slots),
+        "single_ms": single_ms, "single_slots": gp.slots,
+        "single_ns_per_request": single_ms * 1e6 / STREAM_REQUESTS,
+        "single_ns_per_slot": single_ms * 1e6 / gp.slots}
+
+    # host ms per window by part, and peak device memory at two lengths
+    timings = {}
+    emu.run_stream_many(streams(STREAM_REQUESTS), jn, "ts",
+                        chunk=STREAM_CHUNK, collect="aggregate",
+                        timings=timings)
+    n_win = len(windows)
+    host_ms = {k: v * 1e3 / n_win for k, v in timings.items()}
+    peak = {}
+    for n in (STREAM_REQUESTS // 2, STREAM_REQUESTS):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        emu.run_stream_many(streams(n), jn, "ts", chunk=STREAM_CHUNK,
+                            collect="aggregate")
+        torch.cuda.synchronize()
+        peak[n] = torch.cuda.max_memory_allocated() - base
+    check(len(set(peak.values())) == 1,
+          f"phase 7c: peak device memory grows with the stream: {peak}")
+
+    # the kernel entry: time per launch, the plain window step on the same
+    # inputs over a cut slot budget (the plain engine is ~1e3 launches a
+    # slot on the card), the bound of the bytes each window must move and
+    # of 200 operations per served and per issued request it advanced
+    big = max(windows, key=lambda w: int((w["out"].served_n
+                                          - w["args"][0].served_n).sum()))
+    bargs, bp = big["args"], big["args"][-2]
+    cut = bargs[:-2] + (dataclasses.replace(bp, slots=200), bargs[-1])
+    kc, pc = state_fields(kern_w(*cut)), state_fields(
+        ref.slot_scan_window_ref(*cut))
+    check(set(kc) == set(pc), "slot_scan_window and the plain window step "
+                              "give other fields")
+    err = max(int((kc[f].long() - pc[f].long()).abs().max())
+              for f in pc if pc[f].numel())
+    check(err == 0, f"slot_scan_window != plain window step at a cut "
+                    f"budget (max abs err {err})")
+    plain_ms = cuda_ms(lambda: ref.slot_scan_window_ref(*cut), reps=1)
+    B, L = bp.batch, bp.n
+    bytes_w = B * L * (5 * 4 + 2 * 4 * 2) + B * (bp.q * 8 + 9 * 8
+                                               + 3 * bp.n_banks * 8)
+    advanced = sum(int((w["out"].served_n - w["args"][0].served_n).sum())
+                   + int((w["out"].ptr - w["args"][0].ptr).sum())
+                   for w in windows)
+    bms, bby = bound_ms(bytes_w * len(windows), advanced * 200)
+    entry = {"name": "slot_scan_window", "route": "cuda",
+             "source": SOURCES["slot_scan_window"],
+             "replaces": REPLACES["slot_scan_window"],
+             "launches": counts["slot_scan_window"], "max_abs_err": 0,
+             "ms": sum(win_ms) / len(win_ms), "plain_ms": plain_ms,
+             "bound_ms": bms / len(windows), "bound_by": bby,
+             "library_ms": None,
+             "shape": (f"{B} streams x {STREAM_REQUESTS} requests, window "
+                       f"{L} ({STREAM_CHUNK} + halo), {bp.slots} budget "
+                       f"slots"),
+             "plain_slots": 200, "kernel_ms_at_plain_slots": cuda_ms(
+                 lambda: kern_w(*cut), reps=3),
+             "variants": variants, **kernel_cmp}
+
+    # (ii) the cut cases, every window against the plain window step
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    rec.record()
+    cut_variants = {}
+    for name in WINDOW_CASES:
+        sys_, trs_c, kw, chunk = window_case(np, emu, smcprog, timescale,
+                                             traces, faults, name)
+        rec.tag = name
+        ops.reset_launches()
+        got = emu.run_stream_many(trs_c, sys_, chunk=chunk, **kw)
+        cut_variants[name] = ops.variants()
+        for i, (tr, a, b) in enumerate(zip(trs_c, got, emu.run_many(
+                trs_c, sys_, **kw))):
+            same_stream(np, a, b, tr.n, f"{name} stream {i}")
+    rec.restore()
+    check(any(k.endswith("wide-shared") for v in cut_variants.values()
+              for k in v)
+          and any(k.endswith("fast-faults") for v in cut_variants.values()
+                  for k in v), f"phase 7c: the cuts ran {cut_variants}")
+    cut_windows = [w for w in rec.windows]
+    e2, plain = compare_plain_windows(np, cut_windows)
+    err = max(err, e2)
+
+    # (iii) a gzip trace file through an LLC, streamed against the whole
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        path = os.path.join(tmp, "synthetic.trace.gz")
+        src = materialize(np, emu, traces.synthetic_stream(
+            TRACE_FILE_LINES, window=65536, seed=99, n_banks=geo.n_banks,
+            n_rows=geo.n_rows))
+        addr = ((src.row.astype(np.int64) * geo.n_banks + src.bank)
+                * geo.row_bytes + (src.delta.astype(np.int64) * 64)
+                % geo.row_bytes)
+        with gzip.open(path, "wt") as fh:
+            for i, (a, k) in enumerate(zip(addr.tolist(),
+                                           src.kind.tolist())):
+                fh.write(f"{i}, {'WriteReq' if k else 'ReadReq'}, "
+                         f"{hex(a)}, 64\n" if i % 16 == 0 else
+                         f"{hex(a)} {'W' if k else 'R'}\n")
+        t0 = time.perf_counter()
+        got = emu.run_stream(
+            lambda: traces.iter_trace_file_windows(
+                path, geo, window=STREAM_CHUNK, llc=cachesim.LLC()),
+            jn, "ts", chunk=STREAM_CHUNK)
+        file_stream_s = time.perf_counter() - t0
+        whole = traces.load_trace_file(path, geo, llc=cachesim.LLC())
+        same_stream(np, got, emu.run(whole, jn, "ts"), whole.n,
+                    "trace file")
+        check(got["n_requests"] == whole.n_real > TRACE_FILE_LINES // 2,
+              "phase 7c: the trace file's stream lost requests")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (iv) a Campaign mixing stream and batched points
+    ctr = [materialize(np, emu, traces.synthetic_stream(
+        20000, window=4000, seed=70 + i, kinds=5, dep_max=4))
+        for i in range(2)]
+    bf = window_case(np, emu, smcprog, timescale, traces, faults,
+                     "bloom-shared")[2]["blooms"]
+    c = campaign.Campaign()
+    c.add(ctr[0], jn, arm="batch")
+    c.add(lambda: traces.iter_windows(ctr[0], 3000), jn, stream=True,
+          chunk=4096, arm="stream")
+    c.add(ctr[1], jn, mode="nots", bloom=bf, arm="batch-bloom")
+    c.add(lambda: traces.iter_windows(ctr[1], 5000), jn, mode="nots",
+          bloom=bf, stream=True, chunk=4096, arm="stream-bloom")
+    c.add(ctr[1], jn, mode="reference", arm="batch-ref")
+    recs = {r["arm"]: r for r in c.run(stream_collect="full")}
+    same_stream(np, recs["stream"], recs["batch"], ctr[0].n, "campaign")
+    same_stream(np, recs["stream-bloom"], recs["batch-bloom"], ctr[1].n,
+                "campaign bloom")
+
+    say(f"phase 7c stream: {STREAM_N} x {STREAM_REQUESTS} requests "
+        f"(chunk {STREAM_CHUNK}) == single-shot run_many on every field; "
+        f"{len(windows)} window launches {variants}; stream "
+        f"{total / stream_wall:.0f} requests/s end to end (generation "
+        f"included) vs single-shot {total / single_wall:.0f} requests/s "
+        f"(traces materialized beforehand): ratio "
+        f"{single_wall / stream_wall:.3f}")
+    say(f"phase 7c window kernel: {kernel_cmp['window_ns_per_request']:.1f} "
+        f"ns per request a row over {len(windows)} windows "
+        f"({kernel_cmp['window_ns_per_budget_slot']:.1f} ns per budget "
+        f"slot, {win_method}); single-shot kernel on the same traces "
+        f"{kernel_cmp['single_ns_per_request']:.1f} ns per request "
+        f"({kernel_cmp['single_ns_per_slot']:.1f} ns per slot, "
+        f"{gp.slots} slots)")
+    say("phase 7c host ms per window: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host_ms.items())
+        + f" (with a device sync closing each part); peak device memory "
+          f"{peak} bytes at {list(peak)} requests a stream")
+    say(f"phase 7c cuts: every window of {len(WINDOW_CASES)} cases "
+        f"({', '.join(WINDOW_CASES)}) == plain window step on every state "
+        f"field ({plain['windows']} windows, {plain['plain_cpu_s']:.1f} "
+        f"CPU-s in {plain['workers']} processes, {plain['wall_s']:.1f} s); "
+        f"trace file ({TRACE_FILE_LINES} lines, gzip, LLC: {whole.n} DRAM "
+        f"requests, streamed in {file_stream_s:.2f} s) == load_trace_file "
+        f"+ run; Campaign of {len(c)} points in {c.n_groups()} groups: "
+        f"stream == batched points")
+    return err, entry, {
+        "wall_s": {"stream": stream_wall, "single_shot": single_wall},
+        "requests_per_s": {"stream": total / stream_wall,
+                           "single_shot": total / single_wall},
+        "kernel": kernel_cmp, "host_ms_per_window": host_ms,
+        "peak_device_bytes": peak, "cut_variants": cut_variants,
+        "cut_plain": plain, "trace_file_requests": whole.n,
+        "trace_file_stream_s": file_stream_s}
+
+
 def close(got, want, atol, rtol):
     """Elementwise ``|got - want| <= atol + rtol * |want|`` (numpy's
     allclose) on float32 copies; returns (ok, max abs err)."""
@@ -1484,9 +1990,9 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.core import (bloom as bloom_mod, campaign, dram,
-                                      emulator as emu, faults, smcprog,
-                                      techniques, timescale, traces)
+        from repro_torch.core import (bloom as bloom_mod, cachesim, campaign,
+                                      dram, emulator as emu, faults,
+                                      smcprog, techniques, timescale, traces)
         from repro_torch import configs
         from repro_torch.kernels import ops, ref
         from repro_torch.models import model_zoo
@@ -1504,7 +2010,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         ops.library()
         info = dict(ops.BUILD_INFO)
-        say(f"phase 1 build: {len(SOURCES)} kernels with nvcc for sm_90a in "
+        say(f"phase 1 build: {len(set(SOURCES.values()))} kernel sources "
+            f"with nvcc for sm_90a in "
             f"{time.perf_counter() - t0:.1f} s")
         for ln in info.get("ptxas", []):
             say(f"  ptxas: {ln}")
@@ -1540,6 +2047,11 @@ def main(argv=None):
             np, torch, ops, ref, emu, techniques, timescale, traces, faults)
         scan["max_abs_err"] = max(scan["max_abs_err"], float(err))
         scan["faults"] = report["faults"]
+        err, window_entry, report["stream"] = phase_stream(
+            np, torch, ops, ref, emu, smcprog, timescale, traces, faults,
+            cachesim, campaign)
+        window_entry["max_abs_err"] = float(err)
+        kernels.append(window_entry)
 
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)

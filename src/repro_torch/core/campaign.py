@@ -15,6 +15,12 @@ Usage::
         c.add(tr, JETSON_NANO, mode="ts", bloom=bloom, workload=name,
               technique="trcd")
     records = c.run()          # [{workload, technique, exec_cycles, ...}]
+
+Unbounded workloads are one more grid axis: ``add(stream, sys,
+stream=True, chunk=...)`` takes an iterable (or generator factory) of
+``Trace`` windows and runs it through ``emulator.run_stream_many``, the
+constant-memory window driver. Stream points group on ``(chunk, sys,
+mode, bloom-shape)``, whatever their length.
 """
 from __future__ import annotations
 
@@ -29,17 +35,31 @@ from repro_torch.core.timescale import SystemConfig
 
 @dataclasses.dataclass
 class Point:
-    """One grid point. ``meta`` is carried through to the result."""
-    trace: Trace
+    """One grid point. ``meta`` is carried through to the result.
+
+    ``stream=True`` marks an unbounded point: ``trace`` is then a Trace,
+    an iterable of Trace windows, or a zero-arg callable returning one,
+    run through ``emulator.run_stream_many`` in windows of ``chunk``
+    requests."""
+    trace: Any
     sys: SystemConfig
     mode: str = "ts"
     bloom: Optional[tuple] = None       # (words_u32, k, m_bits)
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    stream: bool = False
+    chunk: Optional[int] = None         # stream window size (stream only)
     # runtime policy axis: the program rides the batch as data
     policy: Optional[PolicyProgram] = None
     policy_cost: Optional[int] = None   # smc_cycles_per_decision operand
 
     def group_key(self) -> tuple:
+        if self.stream:
+            # no length bucket: stream points group on (chunk, sys, mode,
+            # bloom-shape) alone, whatever their size
+            chunk = self.chunk or emulator.DEFAULT_STREAM_CHUNK
+            return ("stream", chunk, self.sys,
+                    emulator._norm_mode(self.mode),
+                    emulator._bloom_shape(self.bloom))
         return emulator.group_key(self.trace.n, self.sys, self.mode,
                                   self.bloom, policy=self.policy)
 
@@ -50,13 +70,19 @@ class Campaign:
     def __init__(self) -> None:
         self.points: List[Point] = []
 
-    def add(self, trace: Trace, sys: SystemConfig, mode: str = "ts",
-            bloom: Optional[tuple] = None, **meta) -> "Campaign":
+    def add(self, trace, sys: SystemConfig, mode: str = "ts",
+            bloom: Optional[tuple] = None, stream: bool = False,
+            chunk: Optional[int] = None, **meta) -> "Campaign":
         emulator.check_mode(mode)
-        if not isinstance(trace, Trace):
-            raise ValueError(f"points need a Trace, got "
-                             f"{type(trace).__name__}")
-        self.points.append(Point(trace, sys, mode, bloom, meta))
+        if not stream and not isinstance(trace, Trace):
+            raise ValueError(
+                f"non-stream points need a Trace, got "
+                f"{type(trace).__name__}; pass stream=True for "
+                f"iterables / generator factories")
+        if chunk is not None and not stream:
+            raise ValueError("chunk is a stream-point knob; pass stream=True")
+        self.points.append(Point(trace, sys, mode, bloom, meta,
+                                 stream=stream, chunk=chunk))
         return self
 
     def extend(self, traces: Sequence[Trace], sys: SystemConfig,
@@ -123,9 +149,13 @@ class Campaign:
     def n_groups(self) -> int:
         return len({p.group_key() for p in self.points})
 
-    def run(self, device=None) -> List[dict]:
-        """Execute every point, one batched ``run_many`` per group, in
-        group order; records come back in ``add`` order."""
+    def run(self, device=None,
+            stream_collect: str = "aggregate") -> List[dict]:
+        """Execute every point, one batched ``run_many`` (or, for stream
+        points, one ``run_stream_many``) per group, in group order;
+        records come back in ``add`` order. ``stream_collect`` is the
+        stream points' output shape: 'aggregate' (no per-request arrays)
+        or 'full'."""
         dev = emulator.resolve_device(device)
         groups: Dict[tuple, List[int]] = {}
         for i, p in enumerate(self.points):
@@ -139,12 +169,18 @@ class Campaign:
                 # one shared filter broadcasts; distinct ones stack
                 same = all(p.bloom is p0.bloom for p in pts)
                 blooms = p0.bloom if same else [p.bloom for p in pts]
-            pkw = {} if p0.policy is None else dict(
-                policies=[p.policy for p in pts],
-                policy_costs=[p.policy_cost for p in pts])
-            outs = emulator.run_many([p.trace for p in pts], p0.sys,
-                                     [p.mode for p in pts], blooms,
-                                     device=dev, **pkw)
+            if p0.stream:
+                outs = emulator.run_stream_many(
+                    [p.trace for p in pts], p0.sys, [p.mode for p in pts],
+                    blooms, chunk=p0.chunk or emulator.DEFAULT_STREAM_CHUNK,
+                    collect=stream_collect, device=dev)
+            else:
+                pkw = {} if p0.policy is None else dict(
+                    policies=[p.policy for p in pts],
+                    policy_costs=[p.policy_cost for p in pts])
+                outs = emulator.run_many([p.trace for p in pts], p0.sys,
+                                         [p.mode for p in pts], blooms,
+                                         device=dev, **pkw)
             for p, i, out in zip(pts, idxs, outs):
                 clash = set(out) & set(p.meta)
                 if clash:

@@ -28,12 +28,18 @@ power of two with all-NOP rows, and runs each group as one batch:
   runs every row through the exact slot budget;
 * on the CPU (``device="cpu"``), the plain PyTorch versions of both.
 
+:func:`run_stream` / :func:`run_stream_many` take traces too long to
+materialize, in constant-memory windows (the section at the end): one
+launch of the ``slot_scan`` kernel's window entry per window, with
+results equal to :func:`run_many`'s.
+
 Entry points take ``device=None``, meaning ``"cuda"``; without a CUDA
 device they raise rather than run on the CPU unasked.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -43,19 +49,23 @@ from repro_torch.core import smcprog
 from repro_torch.core.bloom import words_tensor
 from repro_torch.core.dram import NOP, neighbor_refresh_ticks
 from repro_torch.core.faults import (DOMAIN_HAMMER, DOMAIN_PARA,
-                                     DOMAIN_WEAK, domain_key)
+                                     DOMAIN_WEAK, domain_key,
+                                     fault_result_fields)
 from repro_torch.core.smcprog import wrap32
-from repro_torch.core.state import BIG, EmulatorState
+from repro_torch.core.state import (BIG, TRACE_FIELDS, EmulatorState,
+                                    StreamState)
 from repro_torch.core.threefry import as_int32
 from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import FP
+from repro_torch.kernels.ref import FP, FRONTIER_UPTO
 from repro_torch.kernels.slot_scan import ScanParams
 
 __all__ = ["BIG", "FP", "EmulatorState", "Trace", "pad_trace",
            "slot_budget", "group_key", "resolve_device", "run", "run_many",
-           "run_policies"]
+           "run_policies", "StreamState", "DEFAULT_STREAM_CHUNK",
+           "DEFAULT_STREAM_DEP", "stream_halo", "stream_slot_budget",
+           "shift_window", "run_stream", "run_stream_many"]
 
 
 @dataclasses.dataclass
@@ -295,6 +305,54 @@ def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
     return out
 
 
+def _group_tables(sys: SystemConfig, idxs, lb, pol, bb: int, device):
+    """One group's decision inputs: the packed policy tables ``[bb, lb + 1,
+    4]`` (None for the legacy scheduler flag), the cost pairs ``[bb, 2]``,
+    the table bucket (0 without tables) and whether a table loads
+    ``para_rand`` (the fault path). Runtime tables come one per row; a
+    staged ``sys.policy`` is the same table on every row, at ``sys``'s
+    decision cost."""
+    if lb is not None:       # runtime policy tables, one per row
+        progs = [pol[0][i] for i in idxs]
+        cost_rows = [_policy_cost_pair(sys, pol[1][i]) for i in idxs]
+    elif sys.policy is not None:   # staged program: same table, sys cost
+        progs = [sys.policy] * len(idxs)
+        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
+        lb = smcprog.table_bucket(sys.policy.n_ops)
+    else:                    # legacy scheduler flag
+        progs = None
+        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
+    cost_rows = cost_rows + [cost_rows[0]] * (bb - len(cost_rows))
+    costs = torch.tensor(cost_rows, dtype=torch.int32, device=device)
+    if progs is None:
+        return None, costs, 0, False
+    para = any(p.uses(smcprog.OP_PARA_RAND) for p in progs)
+    packed = [smcprog.pack_program(p, lb) for p in progs]
+    packed += [packed[0]] * (bb - len(packed))
+    return torch.from_numpy(np.stack(packed)).to(device), costs, lb, para
+
+
+def _group_blooms(blooms, idxs, bb: int, device):
+    """One group's Bloom words ``[1 or bb, W]`` and (k, m_bits), or None."""
+    if blooms is None:
+        return None
+    if isinstance(blooms, tuple):
+        words = words_tensor(blooms[0], device).unsqueeze(0)
+        return words.contiguous(), int(blooms[1]), int(blooms[2])
+    rows_w = [np.asarray(blooms[i][0]) for i in idxs]
+    rows_w += [rows_w[0]] * (bb - len(idxs))
+    words = words_tensor(np.stack(rows_w), device)
+    return words.contiguous(), int(blooms[0][1]), int(blooms[0][2])
+
+
+def _probe(bf, bank: torch.Tensor, row: torch.Tensor,
+           n_rows: int) -> torch.Tensor:
+    """The weak-row flags ``[B, N]`` int8 of requests to (bank, row)."""
+    words, k, m_bits = bf
+    keys = wrap32(bank.long() * n_rows + row.long())
+    return ops.bloom_probe(words, keys, k, m_bits)
+
+
 def _run_group(traces, idxs, bucket, gmode, lb, sys, modes, blooms, pol,
                device, results) -> None:
     """Pad, stack and run one (bucket, mode, table-bucket) group."""
@@ -313,42 +371,13 @@ def _run_group(traces, idxs, bucket, gmode, lb, sys, modes, blooms, pol,
         torch.from_numpy(stacked[f]).to(device)
         for f in ("kind", "bank", "row", "delta", "dep"))
 
-    weak = None
-    if blooms is not None:
-        if isinstance(blooms, tuple):
-            words = words_tensor(blooms[0], device).unsqueeze(0)
-            k, m_bits = int(blooms[1]), int(blooms[2])
-        else:
-            rows_w = [np.asarray(blooms[i][0]) for i in idxs]
-            rows_w += [rows_w[0]] * (bb - len(idxs))
-            words = words_tensor(np.stack(rows_w), device)
-            k, m_bits = int(blooms[0][1]), int(blooms[0][2])
-        keys = wrap32(bank.long() * geo.n_rows + row.long())
-        weak = ops.bloom_probe(words.contiguous(), keys, k, m_bits)
+    bf = _group_blooms(blooms, idxs, bb, device)
+    weak = None if bf is None else _probe(bf, bank, row, geo.n_rows)
 
-    if lb is not None:       # runtime policy tables, one per row
-        progs = [pol[0][i] for i in idxs]
-        cost_rows = [_policy_cost_pair(sys, pol[1][i]) for i in idxs]
-    elif sys.policy is not None:   # staged program: same table, sys cost
-        progs = [sys.policy] * len(idxs)
-        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
-        lb = smcprog.table_bucket(sys.policy.n_ops)
-    else:                    # legacy scheduler flag
-        progs = None
-        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
-    cost_rows = cost_rows + [cost_rows[0]] * (bb - len(cost_rows))
-    costs = torch.tensor(cost_rows, dtype=torch.int32, device=device)
-    tables = None
-    para = progs is not None and any(
-        p.uses(smcprog.OP_PARA_RAND) for p in progs)
-    if progs is not None:
-        packed = [smcprog.pack_program(p, lb) for p in progs]
-        packed += [packed[0]] * (bb - len(packed))
-        tables = torch.from_numpy(np.stack(packed)).to(device)
-
+    tables, costs, lb, para = _group_tables(sys, idxs, lb, pol, bb, device)
     slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
-    p = _scan_params(sys, gmode, bb, bucket, slots,
-                     0 if tables is None else lb, weak is not None, para)
+    p = _scan_params(sys, gmode, bb, bucket, slots, lb, weak is not None,
+                     para)
     out = ops.slot_scan(kind, bank, row, delta, dep, weak, tables, costs, p)
     host = {kk: v.cpu().numpy() for kk, v in out.items()}
     for j, i in enumerate(idxs):
@@ -405,3 +434,386 @@ def run(trace: Trace, sys: SystemConfig, mode: str = "ts",
     """One trace, one config, one mode (a batch of one).
     ``bloom``: (words_u32, k, m_bits)."""
     return run_many([trace], sys, mode=mode, blooms=bloom, device=device)[0]
+
+
+# ---------------------------------------------------------------------------
+# Streaming: unbounded traces in constant-memory windows, bit-identical to
+# single-shot (the reference's run_stream section).
+#
+# A stream is consumed in windows of L = halo + chunk requests. Each window
+# (a) shifts the carried arrays left by ``chunk`` (the retired entries are
+# final), appends the fresh chunk (t_issue 0, t_resp BIG, and with a Bloom
+# filter its weak flags from one bloom_probe launch), rebases the queue and
+# the pointer by -chunk, and (b) runs the slot scan's window entry
+# (ops.slot_scan_window) for the window's slot budget under the freeze
+# rule: a slot runs only while ptr <= L - FRONTIER_UPTO, else it is the
+# identity. The streamed slot sequence is therefore the single-shot one
+# with identity steps inserted. After an interior window every entry below
+# ``chunk`` is issued and served, and the window emits [0, chunk); the
+# window that exhausts the group lifts the freeze (final=1), drains the
+# tail within the same budget and emits its whole [0, L). The virtual
+# window-0 halo is all NOP with t_issue 0 and t_resp -1, so the frontier's
+# lookback terms read 0, the single-shot out-of-range defaults. Times stay
+# absolute int32: a stream saturates at ~2^30 modeled cycles, checked at
+# the accumulator.
+# ---------------------------------------------------------------------------
+
+DEFAULT_STREAM_CHUNK = 4096   # requests per window
+DEFAULT_STREAM_DEP = 8        # max dep lookback admitted into a stream
+
+
+def stream_halo(sys: SystemConfig, dep_max: int = DEFAULT_STREAM_DEP) -> int:
+    """Carried-context length: the frontier looks back at most
+    ``max(window, dep)`` entries, and up to ``FRONTIER_UPTO - 1``
+    unissued entries may trail the pointer at a window handoff."""
+    return FRONTIER_UPTO + max(int(sys.window), int(dep_max))
+
+
+def stream_slot_budget(chunk: int, sys: SystemConfig) -> int:
+    """Per-window slot budget: the fresh chunk (2 slots a request), the
+    carried queued entries (2 * max(window, 2)) and slack (12). It also
+    drains the freeze-lifted final window; surplus slots are no-ops."""
+    return 2 * chunk + 2 * max(int(sys.window), 2) + 12
+
+
+def _nop_fields(k: int) -> tuple:
+    z = np.zeros(k, np.int32)
+    return (np.full(k, NOP, np.int32), z, z, z, z)
+
+
+class _Chunker:
+    """Re-buffer a stream of :class:`Trace` windows into exact
+    ``chunk``-sized int32 field blocks, NOP-padding past the end. Accepts
+    a single Trace, an iterable of Traces, or a zero-arg callable
+    returning one (a generator factory). Holds O(chunk + largest yielded
+    window) host memory."""
+
+    __slots__ = ("it", "chunk", "dep_max", "parts", "buffered",
+                 "exhausted", "n")
+
+    def __init__(self, stream, chunk: int, dep_max: int):
+        if isinstance(stream, Trace):
+            stream = (stream,)
+        elif callable(stream):
+            stream = stream()
+        self.it = iter(stream)
+        self.chunk = chunk
+        self.dep_max = dep_max
+        self.parts: list = []    # pending (kind, bank, row, delta, dep)
+        self.buffered = 0
+        self.exhausted = False
+        self.n = 0               # total requests pulled (incl. user NOPs)
+
+    @property
+    def done(self) -> bool:
+        return self.exhausted and self.buffered == 0
+
+    def _pull(self) -> None:
+        try:
+            tr = next(self.it)
+        except StopIteration:
+            self.exhausted = True
+            return
+        if not isinstance(tr, Trace):
+            raise TypeError(
+                f"streams must yield Trace windows, got {type(tr).__name__}")
+        dep = np.asarray(tr.dep, np.int32)
+        if dep.size and (int(dep.max()) > self.dep_max or int(dep.min()) < 0):
+            raise ValueError(
+                f"stream window has dep={int(dep.max())} outside "
+                f"[0, dep_max={self.dep_max}]; raise dep_max (grows the "
+                f"carried halo) or re-author the trace")
+        self.parts.append(tuple(
+            np.asarray(getattr(tr, f), np.int32) for f in TRACE_FIELDS))
+        self.buffered += tr.n
+        self.n += tr.n
+
+    def next_block(self) -> tuple:
+        """The next ``chunk`` requests as (kind, bank, row, delta, dep)
+        arrays; all-NOP once the stream is exhausted."""
+        while self.buffered < self.chunk and not self.exhausted:
+            self._pull()
+        fields: list = [[] for _ in range(5)]
+        need = self.chunk
+        while need and self.parts:
+            part = self.parts[0]
+            take = min(need, part[0].shape[0])
+            for f, arr in zip(fields, part):
+                f.append(arr[:take])
+            if take == part[0].shape[0]:
+                self.parts.pop(0)
+            else:
+                self.parts[0] = tuple(arr[take:] for arr in part)
+            self.buffered -= take
+            need -= take
+        if need:
+            for f, p in zip(fields, _nop_fields(need)):
+                f.append(p)
+        return tuple(np.concatenate(f) if len(f) != 1 else f[0]
+                     for f in fields)
+
+
+class _StreamAccum:
+    """Per-stream output accumulator over emitted window blocks.
+
+    ``collect='aggregate'`` keeps O(1) state: int64-exact latency sums and
+    running maxima (the mean equals the full-mode one). ``collect='full'``
+    also keeps every emitted block and reassembles exact per-request
+    ``t_issue`` / ``t_resp`` arrays of the stream's length."""
+
+    __slots__ = ("collect", "halo", "blocks", "n_requests", "lat_sum",
+                 "last_resp", "last_issue")
+
+    def __init__(self, collect: str, halo: int):
+        self.collect = collect
+        self.halo = halo
+        self.blocks: list = []
+        self.n_requests = 0
+        self.lat_sum = 0
+        self.last_resp = 0
+        self.last_issue = 0
+
+    def feed(self, kind_blk, issue_blk, resp_blk) -> None:
+        valid = kind_blk != NOP  # virtual-halo and padding entries are NOP
+        if valid.any():
+            resp = resp_blk[valid].astype(np.int64)
+            issue = issue_blk[valid].astype(np.int64)
+            if (resp >= int(BIG)).any() or (resp < 0).any():
+                raise RuntimeError(
+                    "streaming invariant violated: a retired window slice "
+                    "holds an unserved or time-wrapped request (t_resp "
+                    "outside [0, 2^30)) — slot budget or int32 time "
+                    "horizon exceeded")
+            self.n_requests += int(valid.sum())
+            self.lat_sum += int((resp - issue).sum())
+            self.last_resp = max(self.last_resp, int(resp.max()))
+            self.last_issue = max(self.last_issue, int(issue.max()))
+        if self.collect == "full":
+            self.blocks.append((kind_blk, issue_blk, resp_blk))
+
+    def result(self, n: int, hits: int, served: int, dram_ticks: int,
+               smc: int, sys: SystemConfig, mode: str) -> dict:
+        if served != self.n_requests:
+            raise RuntimeError(
+                f"streaming invariant violated: {served} serve slots vs "
+                f"{self.n_requests} retired non-NOP requests")
+        exec_cycles = max(self.last_resp, self.last_issue)
+        out = {
+            "exec_cycles": np.int32(exec_cycles),
+            "row_hits": np.int32(hits),
+            "served": np.int32(served),
+            "dram_ticks": np.int32(dram_ticks),
+            "smc_fpga_cycles": np.int32(smc),
+            "exec_seconds": sys.cycles_to_seconds(exec_cycles, mode),
+            "mode": mode,
+            "n_requests": self.n_requests,
+        }
+        if self.collect == "full":
+            H = self.halo
+            kind = np.concatenate([b[0] for b in self.blocks])[H:H + n]
+            t_issue = np.concatenate([b[1] for b in self.blocks])[H:H + n]
+            t_resp = np.concatenate([b[2] for b in self.blocks])[H:H + n]
+            lat = t_resp - t_issue
+            ok = (kind != NOP) & (t_resp < int(BIG))
+            out["avg_load_latency_cycles"] = \
+                float(lat[ok].mean()) if ok.any() else 0.0
+            out["t_resp"] = t_resp
+            out["t_issue"] = t_issue
+        else:
+            out["avg_load_latency_cycles"] = \
+                self.lat_sum / self.n_requests if self.n_requests else 0.0
+        return out
+
+
+def shift_window(ss: StreamState, fresh: dict, chunk: int) -> StreamState:
+    """The window handoff: drop the ``chunk`` oldest entries of every
+    carried array, append the fresh chunk's trace arrays (``fresh``:
+    field -> ``[B, chunk]`` int32 tensor; the weak flags are appended by
+    the caller) with t_issue 0 and t_resp BIG, and rebase the queue and
+    the pointer by -chunk (live queue entries sit in the halo, at
+    index >= chunk). Torch ops on the carry's device."""
+    C = chunk
+    e = ss.emu
+    B = e.t_issue.shape[0]
+
+    def shift(a, tail):
+        return torch.cat([a[:, C:], tail], 1)
+
+    i32 = dict(dtype=torch.int32, device=e.t_issue.device)
+    emu = dataclasses.replace(
+        e, t_issue=shift(e.t_issue, torch.zeros((B, C), **i32)),
+        t_resp=shift(e.t_resp, torch.full((B, C), BIG, **i32)),
+        queue=torch.where(e.queue >= 0, e.queue - C, e.queue),
+        ptr=e.ptr - C)
+    return StreamState(emu=emu, weak=ss.weak, **{
+        f: shift(getattr(ss, f), fresh[f]) for f in TRACE_FIELDS})
+
+
+def _check_stream_args(sys: SystemConfig, chunk, dep_max: int,
+                       collect: str) -> None:
+    """The reference's checks of a stream's chunk and collect mode."""
+    H = stream_halo(sys, dep_max)
+    if not isinstance(chunk, (int, np.integer)) or isinstance(chunk, bool) \
+            or chunk < H:
+        raise ValueError(
+            f"stream chunk must be an int >= halo ({H} = {FRONTIER_UPTO} "
+            f"+ max(window={sys.window}, dep_max={dep_max})) so the final "
+            f"window drains the whole tail in-budget, got {chunk!r}")
+    if collect not in ("full", "aggregate"):
+        raise ValueError(
+            f"collect must be 'full' or 'aggregate', got {collect!r}")
+
+
+class _Clock:
+    """Host seconds of a stream's window parts, summed by part, when
+    ``timings`` is a dict (else a no-op). Each part ends with a device
+    sync, so that the device work it queued counts in it."""
+
+    def __init__(self, timings: Optional[dict], device):
+        self.t = timings
+        self.sync = (timings is not None and device.type == "cuda")
+        self.t0 = time.perf_counter()
+
+    def lap(self, part: str) -> None:
+        if self.t is None:
+            return
+        if self.sync:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.t[part] = self.t.get(part, 0.0) + (now - self.t0)
+        self.t0 = now
+
+
+def _run_stream_group(streams, idxs, gmode, lb, sys, modes, blooms, pol,
+                      chunk: int, dep_max: int, collect: str, device,
+                      results, timings) -> None:
+    """Run one (mode, table-bucket) group's streams in lockstep windows
+    on the caller's thread."""
+    geo = sys.geometry
+    H = stream_halo(sys, dep_max)
+    L = chunk + H
+    B = len(idxs)
+    bf = _group_blooms(blooms, idxs, B, device)
+    tables, costs, lb, para = _group_tables(sys, idxs, lb, pol, B, device)
+    p = _scan_params(sys, gmode, B, L, stream_slot_budget(chunk, sys), lb,
+                     bf is not None, para)
+    chunkers = [_Chunker(streams[i], chunk, dep_max) for i in idxs]
+    accs = [_StreamAccum(collect, H) for _ in idxs]
+    ss = StreamState.init(chunk, H, sys, B, bf is not None, device)
+    clock = _Clock(timings, device)
+    first = True
+    while True:
+        blocks = [c.next_block() for c in chunkers]
+        final = all(c.done for c in chunkers)
+        stacked = [np.stack([b[f] for b in blocks]) for f in range(5)]
+        clock.lap("generate")
+        if stacked[1].min() < 0 or stacked[1].max() >= geo.n_banks:
+            raise ValueError(f"trace banks must lie in [0, {geo.n_banks})")
+        fresh = {f: torch.from_numpy(a).to(device)
+                 for f, a in zip(TRACE_FIELDS, stacked)}
+        ss = shift_window(ss, fresh, chunk)
+        clock.lap("stage")
+        if bf is not None:
+            # the first window probes its virtual halo too (key 0, which
+            # the reference probes if a free lane wins); later ones only
+            # their fresh chunk, and the halo's flags shift with it
+            if first:
+                ss.weak = _probe(bf, ss.bank, ss.row, geo.n_rows)
+            else:
+                ss.weak = torch.cat([ss.weak[:, chunk:], _probe(
+                    bf, fresh["bank"], fresh["row"], geo.n_rows)], 1)
+            clock.lap("probe")
+        ss.emu = ops.slot_scan_window(ss.emu, ss.kind, ss.bank, ss.row,
+                                      ss.delta, ss.dep, ss.weak, tables,
+                                      costs, p, final)
+        clock.lap("scan")
+        # interior windows retire exactly [0, chunk); the final one keeps
+        # its whole [0, L) carry (the tail: that is the flush)
+        keep = L if final else chunk
+        out = torch.stack([ss.kind[:, :keep], ss.emu.t_issue[:, :keep],
+                           ss.emu.t_resp[:, :keep]]).cpu().numpy()
+        ptr = ss.emu.ptr.cpu().numpy()
+        for j, acc in enumerate(accs):
+            acc.feed(*out[:, j])
+        clock.lap("copy")
+        if final:
+            break
+        if (ptr <= L - FRONTIER_UPTO).any():
+            raise RuntimeError(
+                f"streaming invariant violated: issue frontier fell "
+                f"behind the window (ptr={ptr.tolist()}, window={L}, "
+                f"slots={p.slots}) — slot budget too small")
+        first = False
+
+    e = ss.emu
+    hits, served, dram_now, smc = (
+        v.cpu().numpy() for v in (e.hits, e.served_n, e.dram_now,
+                                  e.smc_fpga_cycles))
+    # the fault carry rides the state through every window untouched by
+    # the shift: the final window's state is the whole stream's record
+    fhost = ({k: v.cpu().numpy() for k, v in e.faults.items()}
+             if sys.faults is not None else None)
+    for j, i in enumerate(idxs):
+        results[i] = accs[j].result(
+            chunkers[j].n, int(hits[j]), int(served[j]), int(dram_now[j]),
+            int(smc[j]), sys, modes[i])
+        if fhost is not None:
+            frow = {kk: v[j] for kk, v in fhost.items()}
+            results[i].update(fault_result_fields(frow))
+            results[i]["bit_error_rate"] = \
+                int(frow["vptr"]) / max(int(served[j]), 1)
+
+
+def run_stream_many(streams: Sequence, sys: SystemConfig,
+                    mode: Union[str, Sequence[str]] = "ts", blooms=None,
+                    chunk: int = DEFAULT_STREAM_CHUNK,
+                    dep_max: int = DEFAULT_STREAM_DEP,
+                    collect: str = "full", policies=None, policy_costs=None,
+                    device=None, timings: Optional[dict] = None
+                    ) -> List[dict]:
+    """Evaluate many unbounded traces under one ``SystemConfig`` in
+    lockstep constant-memory windows.
+
+    Each stream is a :class:`Trace`, an iterable of Trace windows, or a
+    zero-arg callable returning one (a generator factory); its length
+    need not be known. Streams group by (normalized mode, policy-table
+    bucket); each group runs its windows serially, one launch of the slot
+    scan's window entry per window (plus one ``bloom_probe`` launch with a
+    filter), and exhausted streams idle on NOP windows until the group
+    drains. Device memory is O(batch * (chunk + halo)); host memory is
+    O(chunk) per stream with ``collect='aggregate'`` or O(length) with
+    ``collect='full'`` (which adds exact per-request ``t_resp`` /
+    ``t_issue``). Results equal single-shot :func:`run_many` on every
+    field for every chunk >= the halo. ``dep_max`` bounds the admissible
+    ``dep`` lookbacks (it sizes the halo). With a fault model each result
+    gains the fault fields and ``bit_error_rate``. ``timings``, a dict,
+    collects the host seconds of the windows' parts (generate, stage,
+    probe, scan, copy), each closed by a device sync."""
+    dev = resolve_device(device)
+    streams = list(streams)
+    n = len(streams)
+    modes = _check_modes([mode] * n if isinstance(mode, str) else mode, n)
+    blooms = _normalize_blooms(blooms, n)
+    pol = _normalize_policies(policies, policy_costs, sys, n)
+    _check_stream_args(sys, chunk, dep_max, collect)
+    groups: dict = {}
+    for i in range(n):
+        lb = None if pol is None else smcprog.table_bucket(pol[0][i].n_ops)
+        groups.setdefault((_norm_mode(modes[i]), lb), []).append(i)
+    results: List[Optional[dict]] = [None] * n
+    for (gmode, lb), idxs in groups.items():
+        _run_stream_group(streams, idxs, gmode, lb, sys, modes, blooms, pol,
+                          int(chunk), dep_max, collect, dev, results,
+                          timings)
+    return results
+
+
+def run_stream(stream, sys: SystemConfig, mode: str = "ts",
+               bloom: Optional[tuple] = None,
+               chunk: int = DEFAULT_STREAM_CHUNK,
+               dep_max: int = DEFAULT_STREAM_DEP,
+               collect: str = "full", device=None) -> dict:
+    """Single-stream wrapper over :func:`run_stream_many` (see there)."""
+    return run_stream_many([stream], sys, mode=mode, blooms=bloom,
+                           chunk=chunk, dep_max=dep_max, collect=collect,
+                           device=device)[0]

@@ -10,6 +10,11 @@ the CUDA slot-scan kernel keeps the same fields on chip. ``faults`` is
 the fault model's carry (``core.faults.init_fault_state``), empty without
 a fault model. :meth:`to_host` / :meth:`from_host` exchange it as nested
 numpy dicts in the reference layout.
+
+:class:`StreamState` is one stream window's carry (the reference's
+``emulator.StreamState``): the :class:`EmulatorState` of the window plus
+its five trace arrays and, with a Bloom filter, the window's weak-row
+flags, which shift with the trace.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.dram import Geometry, init_bank_state
+from repro_torch.core.dram import NOP, Geometry, init_bank_state
 from repro_torch.core.faults import init_fault_state
 
 BIG = 2 ** 30
@@ -92,3 +97,62 @@ class EmulatorState:
             k: ({kk: tens(x) for kk, x in v.items()}
                 if isinstance(v, dict) else tens(v))
             for k, v in d.items()})
+
+
+TRACE_FIELDS = ("kind", "bank", "row", "delta", "dep")
+
+
+@dataclasses.dataclass
+class StreamState:
+    """One stream window's carry, with a leading batch axis: the window's
+    :class:`EmulatorState` and its trace arrays ``[B, L]`` (the trailing
+    halo of which the next window needs), plus the weak-row flags ``[B, L]``
+    int8 of a Bloom-filtered group (None without a filter)."""
+    emu: EmulatorState
+    kind: torch.Tensor
+    bank: torch.Tensor
+    row: torch.Tensor
+    delta: torch.Tensor
+    dep: torch.Tensor
+    weak: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def init(chunk: int, halo: int, sys, batch: int, use_weak: bool = False,
+             device=None) -> "StreamState":
+        """The window-0 carry (the reference's ``_stream_init``): an
+        all-virtual window of L = chunk + halo NOPs with t_issue = 0,
+        t_resp = -1 and ``ptr = L``, so that the first shift lands the
+        pointer on the first real request, and the frontier's lookback
+        terms ``t_resp + 1`` read 0, the single-shot out-of-range
+        default. Weak flags start at 0 (the first window probes the
+        whole window, virtual halo included)."""
+        L = chunk + halo
+        emu = EmulatorState.init(L, sys, batch, device)
+        emu.t_resp.fill_(-1)
+        emu.ptr.fill_(L)
+        z = torch.zeros((batch, L), dtype=torch.int32, device=device)
+        return StreamState(
+            emu=emu, kind=torch.full_like(z, NOP), bank=z, row=z.clone(),
+            delta=z.clone(), dep=z.clone(),
+            weak=(torch.zeros((batch, L), dtype=torch.int8, device=device)
+                  if use_weak else None))
+
+    def to_host(self) -> dict:
+        """Nested dict of numpy arrays: ``emu`` in the reference layout,
+        the trace arrays, and ``weak`` (None without a filter)."""
+        out = {"emu": self.emu.to_host()}
+        for f in TRACE_FIELDS:
+            out[f] = getattr(self, f).cpu().numpy()
+        out["weak"] = None if self.weak is None else self.weak.cpu().numpy()
+        return out
+
+    @staticmethod
+    def from_host(d: dict, device=None) -> "StreamState":
+        """Inverse of :meth:`to_host`."""
+        weak = d.get("weak")
+        return StreamState(
+            emu=EmulatorState.from_host(d["emu"], device),
+            **{f: torch.as_tensor(np.array(d[f], np.int32), device=device)
+               for f in TRACE_FIELDS},
+            weak=None if weak is None else torch.as_tensor(
+                np.array(weak, np.int8), device=device))

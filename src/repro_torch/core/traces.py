@@ -7,6 +7,14 @@ Two families, mirroring the paper's evaluation:
 * PolyBench-like kernels (Sec. 6/8) — synthetic address streams with the
   suite's spread of memory intensities, filtered through the LLC model.
 
+Plus the streaming front door: :func:`load_trace_file` parses
+ramulator-style / MemTraceProbe-style text traces (plain or ``.gz``)
+into the address stream :func:`dram_trace_from_stream` consumes;
+:func:`iter_trace_file_windows` and :func:`iter_windows` yield bounded
+:class:`Trace` windows for ``emulator.run_stream``, so a long trace is
+never materialized whole; :func:`synthetic_stream` generates a random
+request stream window by window.
+
 Host-side numpy throughout: for the same arguments (and, for PolyBench,
 within one process — its seed folds in ``hash(kernel name)``, which
 Python randomizes per process) the arrays are byte-identical to the
@@ -15,6 +23,8 @@ reference generators.
 from __future__ import annotations
 
 import dataclasses
+import gzip
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -39,6 +49,189 @@ def dram_trace_from_stream(addrs, writes, geo: Geometry, delta=8, window_dep=0):
     return Trace.of(kind=kind, bank=bank, row=row,
                     delta=np.full(n, delta, np.int32),
                     dep=np.full(n, window_dep, np.int32))
+
+
+def iter_windows(trace: Trace, window: int) -> Iterator[Trace]:
+    """Slice a materialized trace into bounded windows (views, no copies):
+    ``emulator.run_stream(iter_windows(tr, w), ...)`` equals
+    ``run(tr, ...)`` for any window size."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    for s in range(0, trace.n, window):
+        e = min(s + window, trace.n)
+        yield Trace(kind=trace.kind[s:e], bank=trace.bank[s:e],
+                    row=trace.row[s:e], delta=trace.delta[s:e],
+                    dep=trace.dep[s:e])
+
+
+# ---------------- text trace files ----------------
+
+_READ_TOKENS = frozenset(
+    ["r", "rd", "read", "readreq", "readex", "ld", "load", "l", "p",
+     "pim", "ifetch"])
+_WRITE_TOKENS = frozenset(
+    ["w", "wr", "write", "writereq", "writeback", "wb", "st", "store",
+     "s"])
+
+
+def _parse_int(tok: str, path: str, lineno: int) -> int:
+    try:
+        return int(tok, 0)   # decimal or 0x... hex
+    except ValueError:
+        raise ValueError(
+            f"{path}:{lineno}: expected an address, got {tok!r}") from None
+
+
+def _parse_op(tok: str) -> Optional[bool]:
+    """R/W command token -> is_write, or None if not a command."""
+    t = tok.lower()
+    if t in _READ_TOKENS:
+        return False
+    if t in _WRITE_TOKENS:
+        return True
+    return None
+
+
+def parse_trace_line(line: str, path: str = "<trace>",
+                     lineno: int = 0) -> Optional[tuple]:
+    """Parse one text-trace line into ``(addr, is_write)``; None for
+    blanks and ``#``/``//`` comments. Accepted layouts (whitespace- or
+    comma-separated, hex or decimal addresses):
+
+    * ramulator style: ``<addr>`` | ``<addr> <R|W>`` | ``<R|W> <addr>``
+    * MemTraceProbe/CSV style: ``<tick>, <cmd>, <addr>[, <size>]``
+      (cmd spelled ReadReq / WriteReq / rd / wr / ...)
+
+    Anything else raises a ValueError naming the file, line number and
+    offending text."""
+    s = line.split("#", 1)[0].split("//", 1)[0].strip()
+    if not s:
+        return None
+    toks = s.replace(",", " ").split()
+    if len(toks) == 1:
+        return _parse_int(toks[0], path, lineno), False
+    if len(toks) == 2:
+        w = _parse_op(toks[1])
+        if w is not None:
+            return _parse_int(toks[0], path, lineno), w
+        w = _parse_op(toks[0])
+        if w is not None:
+            return _parse_int(toks[1], path, lineno), w
+    elif len(toks) in (3, 4):
+        w = _parse_op(toks[1])
+        if w is not None:  # tick, cmd, addr[, size]
+            return _parse_int(toks[2], path, lineno), w
+    raise ValueError(
+        f"{path}:{lineno}: unrecognized trace line {line.strip()!r} "
+        f"(expected '<addr> <R|W>' or '<tick>, <cmd>, <addr>')")
+
+
+def iter_trace_requests(path: str,
+                        max_requests: Optional[int] = None) -> Iterator[tuple]:
+    """Lazily yield ``(addr, is_write)`` from a text trace file; ``.gz``
+    files decompress transparently, and parse errors carry the real
+    file:lineno."""
+    seen = 0
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        for lineno, line in enumerate(fh, 1):
+            if max_requests is not None and seen >= max_requests:
+                return
+            parsed = parse_trace_line(line, path, lineno)
+            if parsed is None:
+                continue
+            seen += 1
+            yield parsed
+
+
+def _empty_trace() -> Trace:
+    return Trace.of(kind=np.empty(0, np.int32), bank=np.empty(0),
+                    row=np.empty(0), delta=np.empty(0))
+
+
+def load_trace_file(path: str, geo: Geometry, delta: int = 8,
+                    window_dep: int = 0, llc: Optional[LLC] = None,
+                    max_requests: Optional[int] = None) -> Trace:
+    """Parse a whole ramulator-/MemTraceProbe-style text trace (plain or
+    gzip ``.gz``) into one :class:`Trace` via
+    :func:`dram_trace_from_stream`. ``llc`` (an optional cache model)
+    filters the CPU-level stream down to DRAM traffic first. For files
+    too large to materialize, use :func:`iter_trace_file_windows` with
+    the streaming driver."""
+    pairs = list(iter_trace_requests(path, max_requests))
+    if not pairs:
+        return _empty_trace()
+    addrs = np.array([a for a, _ in pairs], np.int64)
+    writes = np.array([w for _, w in pairs], bool)
+    if llc is not None:
+        addrs, writes, _ = filter_stream(addrs, writes, llc)
+        if len(addrs) == 0:
+            return _empty_trace()
+    return dram_trace_from_stream(addrs, writes, geo, delta=delta,
+                                  window_dep=window_dep)
+
+
+def iter_trace_file_windows(path: str, geo: Geometry, window: int = 4096,
+                            delta: int = 8, window_dep: int = 0,
+                            llc: Optional[LLC] = None,
+                            max_requests: Optional[int] = None,
+                            ) -> Iterator[Trace]:
+    """Windowed :func:`load_trace_file` for the streaming driver: reads
+    ``window`` requests at a time and yields each batch as a
+    :class:`Trace`, in O(window) memory. A given ``llc`` is stateful
+    across windows (one object filters the whole stream), so the
+    concatenated output equals :func:`load_trace_file`; windows come out
+    shorter where the cache absorbs accesses."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    addrs, writes = [], []
+
+    def flush():
+        a = np.array(addrs, np.int64)
+        w = np.array(writes, bool)
+        addrs.clear()
+        writes.clear()
+        if llc is not None:
+            a, w, _ = filter_stream(a, w, llc)
+        if len(a) == 0:
+            return None
+        return dram_trace_from_stream(a, w, geo, delta=delta,
+                                      window_dep=window_dep)
+
+    for addr, is_write in iter_trace_requests(path, max_requests):
+        addrs.append(addr)
+        writes.append(is_write)
+        if len(addrs) == window:
+            tr = flush()
+            if tr is not None:
+                yield tr
+    if addrs:
+        tr = flush()
+        if tr is not None:
+            yield tr
+
+
+def synthetic_stream(n_requests: int, window: int = 4096, seed: int = 0,
+                     n_banks: int = 16, n_rows: int = 4096,
+                     kinds: int = 2, delta_max: int = 8,
+                     dep_max: int = 2) -> Iterator[Trace]:
+    """A random request stream, yielded one ``window`` at a time so the
+    whole trace never materializes. Window k draws from
+    ``RandomState((seed * 1_000_003 + k) % 2**31)``, so the stream is
+    reproducible and restartable: uniform banks and rows, a read/write
+    mix, delta in [1, delta_max), dep in [0, dep_max)."""
+    emitted = 0
+    k = 0
+    while emitted < n_requests:
+        m = min(window, n_requests - emitted)
+        rng = np.random.RandomState((seed * 1_000_003 + k) % (2 ** 31))
+        yield Trace.of(kind=rng.randint(0, kinds, m),
+                       bank=rng.randint(0, n_banks, m),
+                       row=rng.randint(0, n_rows, m),
+                       delta=rng.randint(1, delta_max, m),
+                       dep=rng.randint(0, dep_max, m))
+        emitted += m
+        k += 1
 
 
 # ---------------- microbenchmarks ----------------

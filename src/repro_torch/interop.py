@@ -17,12 +17,13 @@ from repro_torch.core.dram import Geometry, Timing
 from repro_torch.core.emulator import Trace
 from repro_torch.core.faults import FaultModel
 from repro_torch.core.smcprog import PolicyProgram
-from repro_torch.core.state import EmulatorState
+from repro_torch.core.state import TRACE_FIELDS, EmulatorState, StreamState
 from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
 
 __all__ = ["system_config_from_dict", "trace_from_arrays",
            "policy_from_fields", "bloom_from_words", "EmulatorState",
+           "stream_state_from_host",
            "lm_params_from_numpy", "cache_from_numpy", "tensor_from_numpy"]
 
 
@@ -66,6 +67,21 @@ def bloom_from_words(bits, m_bits: int, k: int) -> BloomFilter:
     if words.shape != (m_bits // 32,):
         raise ValueError(f"{words.shape[0]} words do not hold {m_bits} bits")
     return BloomFilter(bits=words, m_bits=int(m_bits), k=int(k))
+
+
+def stream_state_from_host(emu: dict, kind, bank, row, delta, dep,
+                           weak=None, device="cpu") -> StreamState:
+    """The reference's ``StreamState`` as numpy -> the port's, to hand a
+    stream over between windows: ``emu`` is ``ss.emu.to_host()`` (fault
+    carry included) and the five trace arrays are the window's, each with
+    the leading batch axis the port's carry has (add ``[None]`` to a
+    single stream's). The reference probes the Bloom filter at every
+    pick, so its state holds no weak flags: ``weak`` (int8 ``[B, L]``,
+    the probe of the window's keys) is the port's, None without a
+    filter."""
+    arrays = dict(zip(TRACE_FIELDS, (kind, bank, row, delta, dep)))
+    return StreamState.from_host({"emu": emu, **arrays, "weak": weak},
+                                 device)
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:

@@ -101,6 +101,21 @@
 // The wide instantiation does the same at run time, with its counters in
 // its row region.
 //
+// The window entry (kStream, slot_scan_window_kernel and the wide one's
+// window kernel) runs one stream window (core/emulator.py run_stream; the
+// reference's _stream_step_core after its shift): the row's state comes in
+// from global memory and goes back out (WindowIO), the trace arrays are the
+// window's, t_issue / t_resp are read and written in place, and every slot
+// runs under the freeze gate (f). Nothing on chip carries between windows:
+// the prologue rebuilds the ring from t_resp (a), the stage from ptr, the
+// queue lanes (index, issue time, bank, row, flags, their banks' state),
+// the free mask and m from the queue; the stuck test starts clear. The
+// epilogue stores the bank state, the queue, the scalars and the fault
+// carry (counters, vptr and the counts; the victim log is written in place
+// as events happen, and holds no indices, so it rides the shift as is).
+// There is no trailing pass and no statistics pass: the host accumulates
+// the emitted t_issue / t_resp.
+//
 // Exactness conditions (held by tests/test_torch_cuda.py's slot-scan
 // cases and by chip_smoke.py phases 4 and 7 against the plain engine):
 //
@@ -139,6 +154,14 @@
 //     refuses a tREFI or bank count below 1), the host-rounded
 //     scale_num, argmin and first-free ties to the first lane. Keys at or
 //     above BIG (issue times past 2^30) take the general argmin.
+// (f) The window's freeze gate. A window slot runs only while final or ptr
+//     <= n - 4, evaluated at the start of the slot (the reference ANDs it
+//     into every frontier advance, the service and the idle hop). A frozen
+//     slot is the identity, and ptr, on which the gate depends, cannot
+//     move while frozen, so the row stops at its first frozen slot as it
+//     stops once drained (c). In a window ring entries below 0 are never
+//     read: the window's virtual halo holds t_resp -1, whose t_resp + 1 = 0
+//     is the out-of-range default, at indices >= 0.
 // (e) The fault draws as in the reference: threefry2x32 in uint32
 //     (threefry.cuh: the adds wrap, rotations are funnel shifts), each
 //     data word the uint32 pattern of its int32 (row - 1 = -1 folds in
@@ -191,6 +214,20 @@ struct FaultParams {
 };
 constexpr int kNumParams =
     (sizeof(ScanParams) + sizeof(FaultParams)) / sizeof(int);
+// A stream window's row state in global memory, read in the prologue and
+// written back in the epilogue (kStream): the queue [batch][q] (request
+// indices, -1 free), the scalars [batch][kWinScalars] (ptr, mc_release,
+// dram_now, hits, served, smc, last_bank, bus_busy, refs_done), the bank
+// state [batch][3][n_banks] (open row, ready, ACT tick) and, with a fault
+// model, the bank counters [batch][n_banks]; final lifts the freeze.
+struct WindowIO {
+  int* queue;
+  int* scal;
+  int* bst;
+  int* hct;
+  int final;
+};
+constexpr int kWinScalars = 9;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -558,7 +595,9 @@ __device__ __forceinline__ int4 scan_policy(VmHot h, bool two, int t0,
 // alone carry f, fstats [batch][4] and vlog [batch][3][victim_slots]
 // (when f.victim_slots > 0): with them in the fault-free kernels' list,
 // those compiled 5% slower (PERF.md §6).
-template <bool kPolicy, bool kFaults>
+// kStream: a stream window (WindowIO w; fstats then holds the fault
+// counters in and out, and no statistics are written).
+template <bool kPolicy, bool kFaults, bool kStream>
 __device__ __forceinline__ void scan_row(
     const ScanParams& p, const FaultParams& f, const int* __restrict__ kinds,
     const int* __restrict__ banks, const int* __restrict__ rows,
@@ -566,7 +605,7 @@ __device__ __forceinline__ void scan_row(
     const int8_t* __restrict__ weak_all, const int* __restrict__ tables,
     const int* __restrict__ costs, int* __restrict__ t_issue,
     int* __restrict__ t_resp, int* __restrict__ stats,
-    int* __restrict__ fstats, int* __restrict__ vlog) {
+    int* __restrict__ fstats, int* __restrict__ vlog, const WindowIO& w) {
   extern __shared__ int4 scan_vm[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
@@ -604,6 +643,27 @@ __device__ __forceinline__ void scan_row(
                   : nullptr;
   if (kFaults)
     for (int i = lane; i < SCAN_MAX_BANKS; i += 32) sm_hct[i] = 0;
+  // a window's pointer: the stage, the ring and the frontier start there
+  int ptr0 = 0;
+  if constexpr (kStream) {
+    const int nb = p.n_banks;
+    const int* bs = w.bst + static_cast<size_t>(b) * 3 * nb;
+    for (int i = lane; i < nb; i += 32) {
+      sm.open[i] = bs[i];
+      sm.ready[i] = bs[nb + i];
+      sm.act[i] = bs[2 * nb + i];
+      if (carry) sm_hct[i] = w.hct[static_cast<size_t>(b) * nb + i];
+    }
+    if (carry) {
+      const int* fc = fstats + 4 * b;
+      fs = FaultState{fc[0], fc[1], fc[2], fc[3]};
+    }
+    ptr0 = w.scal[kWinScalars * b];
+    // (a): the ring holds the t_resp of the kRing requests below ptr
+    for (int i = imax(ptr0 - kRing, 0) + lane; i < ptr0; i += 32)
+      sm.ring[i & (kRing - 1)] = __ldcg(tr + i);
+    __syncwarp();
+  }
   const int counter_inc = costs[2 * b];
   const int smc_lat = costs[2 * b + 1];
   const int mc_issue = p.nots ? smc_lat : p.mc_issue_ts;
@@ -619,9 +679,9 @@ __device__ __forceinline__ void scan_row(
   // trace entries [hi - kStage, hi) are staged (those below 0 excepted);
   // the frontier never reads below ptr, so the next kStage / 2 entries
   // are staged once a pass could reach hi
-  int hi = imin(n, kStage);
-  stage_fill(kind, bank, row, delta, dep, weak, 0, hi);
-  if (retention) stage_weak(key_of(f.kw0, f.kw1), f.weak_fp, 0, hi);
+  int hi = imin(n, ptr0 + kStage);
+  stage_fill(kind, bank, row, delta, dep, weak, ptr0, hi);
+  if (retention) stage_weak(key_of(f.kw0, f.kw1), f.weak_fp, ptr0, hi);
   auto next_at = [&](int j) -> Next {
     const int s = j & (kStage - 1);
     return {sm.flags[s], sm.delta[s], sm.dep[s], sm.bank[s], sm.row[s]};
@@ -633,8 +693,8 @@ __device__ __forceinline__ void scan_row(
   Lane qlo = {0, REPRO_BIG, 0, 0, 0, -1, 0, 0};
   Lane qhi = qlo;
   int m = kKeyPast;   // earliest t over the valid lanes
-  int ptr = 0, prev_ti = 0;
-  Next nx = next_at(0);
+  int ptr = ptr0, prev_ti = 0;
+  Next nx = next_at(ptr0);
   // the frontier failed at ptr and none of its inputs there (t_resp at
   // stuck_w and stuck_d, a free lane if stuck_full) has changed since:
   // it would fail again at once, so it is not run
@@ -642,6 +702,38 @@ __device__ __forceinline__ void scan_row(
   int stuck_w = -1, stuck_d = -1;
   int bus_busy = 0, refs_done = 0, mc_release = 0, dram_now = 0;
   int hits = 0, served = 0, smc = 0, last_bank = -1;
+  if constexpr (kStream) {   // the window's scalars and queue lanes
+    const int* sc = w.scal + kWinScalars * b;
+    mc_release = sc[1];
+    dram_now = sc[2];
+    hits = sc[3];
+    served = sc[4];
+    smc = sc[5];
+    last_bank = sc[6];
+    bus_busy = sc[7];
+    refs_done = sc[8];
+    prev_ti = ptr > 0 ? __ldcg(ti + ptr - 1) : 0;
+    const int* qrow = w.queue + static_cast<size_t>(b) * Q;
+    const int i_lo = lane < Q ? qrow[lane] : -1;
+    const int i_hi = lane + 32 < Q ? qrow[lane + 32] : -1;
+    auto lane_of = [&](int idx, const Lane& none) -> Lane {
+      if (idx < 0) return none;
+      const int bk = __ldg(bank + idx), rw = __ldg(row + idx);
+      int fl = request_flags(__ldg(kind + idx),
+                             weak != nullptr && __ldg(weak + idx) == 0);
+      if (retention && weak_cell(key_of(f.kw0, f.kw1), f.weak_fp, bk, rw))
+        fl |= kFWeakCell;
+      return {idx, __ldcg(ti + idx), bk, rw, fl,
+              sm.open[bk], sm.ready[bk], sm.act[bk]};
+    };
+    qlo = lane_of(i_lo, qlo);
+    qhi = lane_of(i_hi, qhi);
+    const unsigned f_lo = __ballot_sync(kFull, lane < Q && i_lo < 0);
+    const unsigned f_hi = __ballot_sync(kFull, lane + 32 < Q && i_hi < 0);
+    free_mask = static_cast<unsigned long long>(f_hi) << 32 | f_lo;
+    m = __reduce_min_sync(kFull, imin(i_lo >= 0 ? qlo.t : kKeyPast,
+                                      i_hi >= 0 ? qhi.t : kKeyPast));
+  }
   // dram_now // tREFI, kept with dram_now
   int dram_refs = refi.div(dram_now);
 
@@ -709,8 +801,16 @@ __device__ __forceinline__ void scan_row(
     // after the last slot, the trailing frontier pass so post-memory
     // compute counts (one copy of the frontier's code serves both)
     const bool last = step >= p.slots;
-    if (!stuck || last) frontier(last ? 8 : 4, last);
-    if (last || (ptr >= n && free_mask == all_free)) break;  // drained: (c)
+    if constexpr (kStream) {
+      // the freeze gate at the start of the slot: a row stops at its first
+      // frozen slot (f); no trailing pass
+      if (last || (!w.final && ptr > n - 4)) break;
+      if (!stuck) frontier(4, false);
+      if (ptr >= n && free_mask == all_free) break;   // drained: (c)
+    } else {
+      if (!stuck || last) frontier(last ? 8 : 4, last);
+      if (last || (ptr >= n && free_mask == all_free)) break;  // (c)
+    }
 
     // a lane is visible iff valid with t <= cutoff: some lane is iff
     // m <= cutoff, and m is then the earliest visible time
@@ -894,8 +994,37 @@ __device__ __forceinline__ void scan_row(
     smc = wadd(smc, counter_inc);
     last_bank = bk;
   }
-  write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
-  if (carry) write_fault_stats(fs, fstats + 4 * b);
+  if constexpr (kStream) {   // the row's state back to global memory
+    __syncwarp();
+    const int nb = p.n_banks;
+    int* bs = w.bst + static_cast<size_t>(b) * 3 * nb;
+    for (int i = lane; i < nb; i += 32) {
+      bs[i] = sm.open[i];
+      bs[nb + i] = sm.ready[i];
+      bs[2 * nb + i] = sm.act[i];
+      if (carry) w.hct[static_cast<size_t>(b) * nb + i] = sm_hct[i];
+    }
+    int* qrow = w.queue + static_cast<size_t>(b) * Q;
+    if (lane < Q) qrow[lane] = ((free_mask >> lane) & 1ull) ? -1 : qlo.idx;
+    if (lane + 32 < Q)
+      qrow[lane + 32] = ((free_mask >> (lane + 32)) & 1ull) ? -1 : qhi.idx;
+    if (lane == 0) {
+      int* sc = w.scal + kWinScalars * b;
+      sc[0] = ptr;
+      sc[1] = mc_release;
+      sc[2] = dram_now;
+      sc[3] = hits;
+      sc[4] = served;
+      sc[5] = smc;
+      sc[6] = last_bank;
+      sc[7] = bus_busy;
+      sc[8] = refs_done;
+    }
+    if (carry) write_fault_stats(fs, fstats + 4 * b);
+  } else {
+    write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
+    if (carry) write_fault_stats(fs, fstats + 4 * b);
+  }
 }
 
 template <bool kPolicy>
@@ -907,9 +1036,10 @@ slot_scan_kernel(ScanParams p, const int* __restrict__ kinds,
                  const int* __restrict__ tables, const int* __restrict__ costs,
                  int* __restrict__ t_issue, int* __restrict__ t_resp,
                  int* __restrict__ stats) {
-  scan_row<kPolicy, false>(p, FaultParams{}, kinds, banks, rows, deltas, deps,
-                           weak_all, tables, costs, t_issue, t_resp, stats,
-                           nullptr, nullptr);
+  scan_row<kPolicy, false, false>(p, FaultParams{}, kinds, banks, rows, deltas,
+                                  deps, weak_all, tables, costs, t_issue,
+                                  t_resp, stats, nullptr, nullptr,
+                                  WindowIO{});
 }
 
 template <bool kPolicy>
@@ -926,9 +1056,29 @@ slot_scan_faults_kernel(ScanParams p, FaultParams f,
                         int* __restrict__ t_issue, int* __restrict__ t_resp,
                         int* __restrict__ stats, int* __restrict__ fstats,
                         int* __restrict__ vlog) {
-  scan_row<kPolicy, true>(p, f, kinds, banks, rows, deltas, deps, weak_all,
-                          tables, costs, t_issue, t_resp, stats, fstats,
-                          vlog);
+  scan_row<kPolicy, true, false>(p, f, kinds, banks, rows, deltas, deps,
+                                 weak_all, tables, costs, t_issue, t_resp,
+                                 stats, fstats, vlog, WindowIO{});
+}
+
+// One stream window of a fast-instantiation group (kStream): legacy or
+// policy, with the fault path or without.
+template <bool kPolicy, bool kFaults>
+__global__ void __launch_bounds__(32)
+slot_scan_window_kernel(ScanParams p, FaultParams f, WindowIO w,
+                        const int* __restrict__ kinds,
+                        const int* __restrict__ banks,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ deltas,
+                        const int* __restrict__ deps,
+                        const int8_t* __restrict__ weak_all,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ costs,
+                        int* __restrict__ t_issue, int* __restrict__ t_resp,
+                        int* __restrict__ fstats, int* __restrict__ vlog) {
+  scan_row<kPolicy, kFaults, true>(p, f, kinds, banks, rows, deltas, deps,
+                                   weak_all, tables, costs, t_issue, t_resp,
+                                   nullptr, fstats, vlog, w);
 }
 
 // ---------------------------------------------------------------------------
@@ -1058,19 +1208,18 @@ __device__ __noinline__ int3 wide_policy(int* vm, int t, int bank, int row,
                    vals[h.mit + lane]);
 }
 
-__global__ void __launch_bounds__(32)
-slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
-                      const int* __restrict__ kinds,
-                      const int* __restrict__ banks,
-                      const int* __restrict__ rows,
-                      const int* __restrict__ deltas,
-                      const int* __restrict__ deps,
-                      const int8_t* __restrict__ weak_all,
-                      const int* __restrict__ tables,
-                      const int* __restrict__ costs, int* __restrict__ t_issue,
-                      int* __restrict__ t_resp, int* __restrict__ stats,
-                      int* __restrict__ fstats, int* __restrict__ vlog,
-                      int* __restrict__ scratch) {
+// One row of the wide instantiation; kStream: a stream window, as in
+// scan_row.
+template <bool kStream>
+__device__ __forceinline__ void wide_row(
+    const ScanParams& p, const FaultParams& f, const WideLayout& lay,
+    const int* __restrict__ kinds, const int* __restrict__ banks,
+    const int* __restrict__ rows, const int* __restrict__ deltas,
+    const int* __restrict__ deps, const int8_t* __restrict__ weak_all,
+    const int* __restrict__ tables, const int* __restrict__ costs,
+    int* __restrict__ t_issue, int* __restrict__ t_resp,
+    int* __restrict__ stats, int* __restrict__ fstats,
+    int* __restrict__ vlog, int* __restrict__ scratch, const WindowIO& w) {
   extern __shared__ int wide_smem[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
@@ -1136,6 +1285,56 @@ slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
   int ptr = 0, prev_ti = 0;
   int bus_busy = 0, refs_done = 0, mc_release = 0, dram_now = 0;
   int hits = 0, served = 0, smc = 0, last_bank = -1;
+  if constexpr (kStream) {   // the window's row state, as in scan_row
+    const int nb = p.n_banks;
+    const int* bs = w.bst + static_cast<size_t>(b) * 3 * nb;
+    for (int i = lane; i < nb; i += 32) {
+      b_open[i] = bs[i];
+      b_ready[i] = bs[nb + i];
+      b_act[i] = bs[2 * nb + i];
+      if (carry) b_hct[i] = w.hct[static_cast<size_t>(b) * nb + i];
+    }
+    if (carry) {
+      const int* fc = fstats + 4 * b;
+      fs = FaultState{fc[0], fc[1], fc[2], fc[3]};
+    }
+    const int* sc = w.scal + kWinScalars * b;
+    ptr = sc[0];
+    mc_release = sc[1];
+    dram_now = sc[2];
+    hits = sc[3];
+    served = sc[4];
+    smc = sc[5];
+    last_bank = sc[6];
+    bus_busy = sc[7];
+    refs_done = sc[8];
+    prev_ti = ptr > 0 ? __ldcg(ti + ptr - 1) : 0;
+    for (int i = imax(ptr - R, 0) + lane; i < ptr; i += 32)
+      ring[i & (R - 1)] = __ldcg(tr + i);
+    const int* qrow = w.queue + static_cast<size_t>(b) * Q;
+    int busy = 0, mv = kKeyPast;
+    for (int q = lane; q < Q; q += 32) {
+      const int idx = qrow[q];
+      if (idx < 0) continue;
+      l_idx[q] = idx;
+      l_t[q] = __ldcg(ti + idx);
+      l_bank[q] = __ldg(bank + idx);
+      l_row[q] = __ldg(row + idx);
+      l_flags[q] = request_flags(__ldg(kind + idx),
+                                 weak != nullptr && __ldg(weak + idx) == 0);
+      ++busy;
+      mv = imin(mv, l_t[q]);
+    }
+    for (int wd = lane; wd < lay.nw; wd += 32) {
+      unsigned bits = 0u;
+      for (int k = 0; k < 32 && 32 * wd + k < Q; ++k)
+        if (qrow[32 * wd + k] < 0) bits |= 1u << k;
+      l_free[wd] = bits;
+    }
+    nfree = Q - __reduce_add_sync(kFull, busy);
+    m = __reduce_min_sync(kFull, mv);
+    __syncwarp();
+  }
 
   // emulator.py _issue_frontier, as in slot_scan_kernel
   auto frontier = [&](int upto, bool trailing) {
@@ -1179,7 +1378,12 @@ slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
 
   for (int step = 0;; ++step) {
     const bool last = step >= p.slots;
-    frontier(last ? 8 : 4, last);
+    if constexpr (kStream) {   // the freeze gate (f); no trailing pass
+      if (last || (!w.final && ptr > n - 4)) break;
+      frontier(4, false);
+    } else {
+      frontier(last ? 8 : 4, last);
+    }
     if (last || (ptr >= n && nfree == Q)) break;   // drained: (c)
     const int cutoff = wadd(mc_release, vis_slack);
     if (nfree == Q || m > cutoff) {
@@ -1324,8 +1528,75 @@ slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
     smc = wadd(smc, counter_inc);
     last_bank = bk;
   }
-  write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
-  if (carry) write_fault_stats(fs, fstats + 4 * b);
+  if constexpr (kStream) {   // the row's state back to global memory
+    __syncwarp();
+    const int nb = p.n_banks;
+    int* bs = w.bst + static_cast<size_t>(b) * 3 * nb;
+    for (int i = lane; i < nb; i += 32) {
+      bs[i] = b_open[i];
+      bs[nb + i] = b_ready[i];
+      bs[2 * nb + i] = b_act[i];
+      if (carry) w.hct[static_cast<size_t>(b) * nb + i] = b_hct[i];
+    }
+    int* qrow = w.queue + static_cast<size_t>(b) * Q;
+    for (int q = lane; q < Q; q += 32)
+      qrow[q] = wide_free(l_free, q) ? -1 : l_idx[q];
+    if (lane == 0) {
+      int* sc = w.scal + kWinScalars * b;
+      sc[0] = ptr;
+      sc[1] = mc_release;
+      sc[2] = dram_now;
+      sc[3] = hits;
+      sc[4] = served;
+      sc[5] = smc;
+      sc[6] = last_bank;
+      sc[7] = bus_busy;
+      sc[8] = refs_done;
+    }
+    if (carry) write_fault_stats(fs, fstats + 4 * b);
+  } else {
+    write_stats(kind, tr, ti, n, hits, served, dram_now, smc, stats + 5 * b);
+    if (carry) write_fault_stats(fs, fstats + 4 * b);
+  }
+}
+
+__global__ void __launch_bounds__(32)
+slot_scan_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
+                      const int* __restrict__ kinds,
+                      const int* __restrict__ banks,
+                      const int* __restrict__ rows,
+                      const int* __restrict__ deltas,
+                      const int* __restrict__ deps,
+                      const int8_t* __restrict__ weak_all,
+                      const int* __restrict__ tables,
+                      const int* __restrict__ costs, int* __restrict__ t_issue,
+                      int* __restrict__ t_resp, int* __restrict__ stats,
+                      int* __restrict__ fstats, int* __restrict__ vlog,
+                      int* __restrict__ scratch) {
+  wide_row<false>(p, f, lay, kinds, banks, rows, deltas, deps, weak_all,
+                  tables, costs, t_issue, t_resp, stats, fstats, vlog, scratch,
+                  WindowIO{});
+}
+
+// One stream window of a wide-instantiation group.
+__global__ void __launch_bounds__(32)
+slot_scan_window_wide_kernel(ScanParams p, FaultParams f, WideLayout lay,
+                             WindowIO w, const int* __restrict__ kinds,
+                             const int* __restrict__ banks,
+                             const int* __restrict__ rows,
+                             const int* __restrict__ deltas,
+                             const int* __restrict__ deps,
+                             const int8_t* __restrict__ weak_all,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ costs,
+                             int* __restrict__ t_issue,
+                             int* __restrict__ t_resp,
+                             int* __restrict__ fstats,
+                             int* __restrict__ vlog,
+                             int* __restrict__ scratch) {
+  wide_row<true>(p, f, lay, kinds, banks, rows, deltas, deps, weak_all,
+                 tables, costs, t_issue, t_resp, nullptr, fstats, vlog,
+                 scratch, w);
 }
 
 }  // namespace
@@ -1450,5 +1721,71 @@ extern "C" int slot_scan_launch(const int* params, const void* kind,
         p, i(kind), i(bank), i(row), i(delta), i(dep), w, i(tables),
         i(costs), o(t_issue), o(t_resp), o(stats));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One stream window (kStream) of a group, in the fast instantiation (wide
+// 0) or the wide one (wide 1; scratch as for slot_scan_wide_launch). bufs:
+// kind, bank, row, delta, dep, weak, tables, costs, t_issue, t_resp (in
+// and out), then WindowIO's queue, scal, bst and hct, then fstats (the
+// fault counters [batch][4], in and out) and vlog, each nullptr where the
+// group has none.
+extern "C" int slot_scan_window_launch(const int* params, int final,
+                                       void* const* bufs, int wide,
+                                       void* scratch, void* stream) {
+  ScanParams p;
+  FaultParams f;
+  read_params(params, p, f);
+  if (p.batch <= 0) return 0;
+  const auto i = [bufs](int k) { return static_cast<const int*>(bufs[k]); };
+  const auto o = [bufs](int k) { return static_cast<int*>(bufs[k]); };
+  const auto wk = static_cast<const int8_t*>(bufs[5]);
+  const WindowIO w{o(10), o(11), o(12), o(13), final};
+  int* fstats = o(14);
+  int* vlog = o(15);
+  if (w.queue == nullptr || w.scal == nullptr || w.bst == nullptr ||
+      (f.victim_slots > 0 &&
+       (!f.faults || fstats == nullptr || vlog == nullptr ||
+        w.hct == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    const WideLayout lay = wide_layout(p, f);
+    if (lay.ring == 0 || (!lay.in_smem && scratch == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    size_t smem = 0;
+    if (lay.in_smem) {
+      smem = static_cast<size_t>(lay.total) * sizeof(int);
+      const cudaError_t e = cudaFuncSetAttribute(
+          slot_scan_window_wide_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    slot_scan_window_wide_kernel<<<p.batch, 32, smem, st>>>(
+        p, f, lay, w, i(0), i(1), i(2), i(3), i(4), wk, i(6), i(7), o(8),
+        o(9), fstats, vlog, static_cast<int*>(scratch));
+    return static_cast<int>(cudaGetLastError());
+  }
+  size_t smem = 0;
+  if (p.table_len > 0) {
+    if (p.table_len > REPRO_VM_MAX_L)
+      return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t attr_plain =
+        opt_in_policy_smem(slot_scan_window_kernel<true, false>);
+    static const cudaError_t attr_faults =
+        opt_in_policy_smem(slot_scan_window_kernel<true, true>);
+    const cudaError_t attr = f.faults ? attr_faults : attr_plain;
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    smem = static_cast<size_t>(
+               vm_layout(p.table_len, scan_vm_cols(p.q)).total) * 4;
+  }
+  const auto kernel =
+      p.table_len > 0
+          ? (f.faults ? slot_scan_window_kernel<true, true>
+                      : slot_scan_window_kernel<true, false>)
+          : (f.faults ? slot_scan_window_kernel<false, true>
+                      : slot_scan_window_kernel<false, false>);
+  kernel<<<p.batch, 32, smem, st>>>(p, f, w, i(0), i(1), i(2), i(3), i(4), wk,
+                                    i(6), i(7), o(8), o(9), fstats, vlog);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,10 +35,11 @@ from repro_torch.kernels.bloom_probe import bloom_probe_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import policy_vm_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
-from repro_torch.kernels.slot_scan import ScanParams, slot_scan_cuda
+from repro_torch.kernels.slot_scan import (ScanParams, slot_scan_cuda,
+                                          slot_scan_window_cuda)
 
-KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "flash_attention",
-           "rowclone_copy")
+KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "slot_scan_window",
+           "flash_attention", "rowclone_copy")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu",
             "flash_attention.cu", "rowclone_copy.cu")
@@ -183,13 +184,16 @@ def library() -> ctypes.CDLL:
                 + [vp] * 15
             lib.slot_scan_wide_scratch_ints.argtypes = [ctypes.POINTER(i)]
             lib.slot_scan_wide_scratch_ints.restype = ll
+            lib.slot_scan_window_launch.argtypes = [
+                ctypes.POINTER(i), i, ctypes.POINTER(vp), i, vp, vp]
             lib.slot_scan_num_params.argtypes = []
             lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 7 + [
                 ctypes.c_float, vp]
             lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
             for fn in (lib.bloom_probe_launch, lib.policy_vm_launch,
                        lib.policy_vm_wide_launch, lib.slot_scan_launch,
-                       lib.slot_scan_wide_launch, lib.slot_scan_num_params,
+                       lib.slot_scan_wide_launch,
+                       lib.slot_scan_window_launch, lib.slot_scan_num_params,
                        lib.flash_attention_launch, lib.rowclone_copy_launch):
                 fn.restype = i
             n = lib.slot_scan_num_params()
@@ -230,6 +234,17 @@ def slot_scan(kind, bank, row, delta, dep, weak, tables, costs,
         return ref.slot_scan_ref(kind, bank, row, delta, dep, weak, tables,
                                  costs, p)
     return slot_scan_cuda(kind, bank, row, delta, dep, weak, tables, costs, p)
+
+
+def slot_scan_window(st, kind, bank, row, delta, dep, weak, tables, costs,
+                     p: ScanParams, final: bool):
+    """One stream window's slot scan on the shifted window state ``st``
+    (an ``EmulatorState``): returns the state after the window."""
+    if _route("slot_scan_window", kind) == "cpu":
+        return ref.slot_scan_window_ref(st, kind, bank, row, delta, dep,
+                                        weak, tables, costs, p, final)
+    return slot_scan_window_cuda(st, kind, bank, row, delta, dep, weak,
+                                 tables, costs, p, final)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -240,9 +240,11 @@ def _mul_div(a, num, den):
 
 
 def _issue_frontier(st: EmulatorState, kind, delta, dep, W: int,
-                    upto: int) -> None:
+                    upto: int, gate: Optional[torch.Tensor] = None) -> None:
     """Advance the in-order issue pointer by up to ``upto`` requests,
-    pushing them into free queue slots; updates ``st`` in place."""
+    pushing them into free queue slots; updates ``st`` in place.
+    ``gate`` ``[B]`` (a stream window's freeze gate) ANDs into every
+    advance."""
     N = kind.shape[1]
     for _ in range(upto):
         j = st.ptr
@@ -264,6 +266,8 @@ def _issue_frontier(st: EmulatorState, kind, delta, dep, W: int,
         slot = torch.argmax(free.int(), dim=1)
         is_nop = at_index(kind, jc) == NOP
         can = (j < N) & win_known & dep_known & (free.any(1) | is_nop)
+        if gate is not None:
+            can = can & gate
         t_new = torch.maximum(torch.maximum(base, win_t), dep_t)
         _scatter_(st.t_issue, jc,
                   torch.where(can, t_new, at_index(st.t_issue, jc)))
@@ -292,14 +296,24 @@ def _policy_env(q_t, q_bank, q_row, is_write, visible, hit_now, ready,
     return torch.stack([r.to(torch.int32) for r in rows], dim=1)
 
 
-def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
-                  tables: Optional[torch.Tensor], costs: torch.Tensor,
-                  p: ScanParams) -> dict:
-    """Plain version of ``slot_scan_cuda``: same inputs, same outputs.
-    With a fault model (``p.victim_slots > 0``) every served slot advances
-    its carry (``core.faults.apply_slot``) after the DRAM service."""
-    B, N = kind.shape
-    dev = kind.device
+# the issue frontier's advances per slot (the reference's _FRONTIER_UPTO):
+# a stream window's slot runs only while ptr <= n - FRONTIER_UPTO
+FRONTIER_UPTO = 4
+
+
+def _slot_body(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
+               tables: Optional[torch.Tensor], costs: torch.Tensor,
+               p: ScanParams):
+    """The per-slot transition over one group's trace arrays, as a
+    function ``step(st, live)`` that advances ``st`` in place by one slot
+    (``repro.core.emulator._make_slot_body``). ``live`` is None, or the
+    stream window's freeze gate ``[B]``, evaluated at the start of the
+    slot: it ANDs into every frontier advance, into the service and into
+    the idle hop, so a gated-off row's slot is the identity. With a fault
+    model (``p.victim_slots > 0``) every served slot advances its carry
+    (``core.faults.apply_slot``) after the DRAM service. Returns ``step``
+    and the fault model (None without one)."""
+    N = kind.shape[1]
     W = p.window
     t = dram.Timing(tRCD=p.tRCD, tRCD_reduced=p.tRCD_reduced, tCL=p.tCL,
                     tRP=p.tRP, tRAS=p.tRAS, tWR=p.tWR, tBL=p.tBL,
@@ -309,18 +323,16 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     mc_issue = smc_lat if p.nots else torch.full_like(smc_lat, p.mc_issue_ts)
     vis_slack = smc_lat if p.nots else torch.zeros_like(smc_lat)
     den = max(p.scale_num, 1)
-    st = EmulatorState.fresh(N, p.n_banks, p.q, batch=B, device=dev)
     if p.victim_slots < 0 or (p.victim_slots > 0 and not p.faults):
         raise ValueError(f"slot_scan: a fault model (victim_slots "
                          f"{p.victim_slots}) runs with faults=1")
-    fm = None
+    fm = keys = None
     if p.victim_slots > 0:   # the seed enters only through the keys
         fm = FaultModel(hammer_threshold=p.hammer_threshold,
                         hammer_flip_fp=p.hammer_flip_fp, weak_fp=p.weak_fp,
                         retention_ticks=p.retention_ticks,
                         victim_slots=p.victim_slots)
         keys = ((u32(p.kh0), u32(p.kh1)), (u32(p.kw0), u32(p.kw1)))
-        st.faults = init_fault_state(fm, p.n_banks, B, dev)
     kp = (u32(p.kp0), u32(p.kp1))
     # para_rand is drawn on the fault path only (p.faults, which the
     # engine sets for a table that loads it), and only for tables that
@@ -328,8 +340,9 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     para = bool(p.faults) and tables is not None and bool(
         (tables[:, 1:, 0] == smcprog.OP_PARA_RAND).any())
 
-    for _ in range(p.slots):
-        _issue_frontier(st, kind, delta, dep, W, upto=4)
+    def step(st: EmulatorState, live: Optional[torch.Tensor]) -> None:
+        _issue_frontier(st, kind, delta, dep, W, upto=FRONTIER_UPTO,
+                        gate=live)
 
         # gather queued requests (O(Q), not O(N))
         qvalid = st.queue >= 0
@@ -341,6 +354,8 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         cutoff = st.mc_release + vis_slack
         visible = qvalid & (q_t <= cutoff.unsqueeze(1))
         do = visible.any(1)
+        if live is not None:
+            do = do & live
 
         # ---- scheduling decision (two-level argmin, ties to lane 0..)
         hit_now = torch.gather(st.bank["open_row"], 1, q_bank.long()) == q_row
@@ -403,9 +418,13 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         _scatter_(st.queue, qslot,
                   torch.where(do, -1, at_index(st.queue, qslot)))
         # MC busy until the next decision slot; idle hop to the next
-        # arrival when nothing is visible, never on an empty queue
+        # arrival when nothing is visible, never on an empty queue (and
+        # never in a frozen slot)
         nxt = q_t.amin(1)
-        idle = torch.where(qvalid.any(1),
+        may_hop = qvalid.any(1)
+        if live is not None:
+            may_hop = may_hop & live
+        idle = torch.where(may_hop,
                            torch.maximum(st.mc_release,
                                          torch.clamp(nxt, max=BIG - 1)),
                            st.mc_release)
@@ -418,6 +437,25 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         st.smc_fpga_cycles = st.smc_fpga_cycles + torch.where(
             do, counter_inc, 0)
         st.last_bank = torch.where(do, b, st.last_bank)
+
+    return step, fm
+
+
+def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
+                  tables: Optional[torch.Tensor], costs: torch.Tensor,
+                  p: ScanParams) -> dict:
+    """Plain version of ``slot_scan_cuda``: same inputs, same outputs.
+    A fresh state through ``p.slots`` slots of :func:`_slot_body`, then
+    the trailing frontier pass."""
+    B, N = kind.shape
+    dev = kind.device
+    W = p.window
+    step, fm = _slot_body(kind, bank, row, delta, dep, weak, tables, costs, p)
+    st = EmulatorState.fresh(N, p.n_banks, p.q, batch=B, device=dev)
+    if fm is not None:
+        st.faults = init_fault_state(fm, p.n_banks, B, dev)
+    for _ in range(p.slots):
+        step(st, None)
 
     # trailing frontier pass so post-memory compute counts; only its
     # t_issue is kept
@@ -435,3 +473,33 @@ def slot_scan_ref(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     if fm is not None:
         out.update(fault_result_fields(st.faults))
     return out
+
+
+def slot_scan_window_ref(st: EmulatorState, kind, bank, row, delta, dep,
+                         weak: Optional[torch.Tensor],
+                         tables: Optional[torch.Tensor], costs: torch.Tensor,
+                         p: ScanParams, final: bool) -> EmulatorState:
+    """Plain version of ``slot_scan_window_cuda``: one stream window's scan
+    (``repro.core.emulator._stream_step_core`` after its shift) of the
+    shifted window state ``st`` over the window's trace arrays ``[B, n]``,
+    for ``p.slots`` slots of :func:`_slot_body` under the freeze gate
+    ``final | ptr <= n - FRONTIER_UPTO``, with no trailing pass. Returns
+    the new state (``st`` is left as it was). It stops once every row is
+    frozen or drained: each later slot would be the identity."""
+    N = kind.shape[1]
+    step, _ = _slot_body(kind, bank, row, delta, dep, weak, tables, costs, p)
+    st = dataclasses.replace(
+        st, **{f.name: _clone(getattr(st, f.name))
+               for f in dataclasses.fields(st)})
+    for _ in range(p.slots):
+        live = (st.ptr <= N - FRONTIER_UPTO) | bool(final)
+        drained = (st.ptr >= N) & (st.queue < 0).all(1)
+        if not bool((live & ~drained).any()):
+            break
+        step(st, live)
+    return st
+
+
+def _clone(v):
+    return {k: x.clone() for k, x in v.items()} if isinstance(v, dict) \
+        else v.clone()

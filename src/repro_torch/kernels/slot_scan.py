@@ -21,6 +21,12 @@ a policy table that loads ``para_rand``, runs the fault path
 (``faults=1``: the fast instantiation's fault kernel); its outputs gain
 the fault fields with a fault model. The plain
 version is ``repro_torch.kernels.ref.slot_scan_ref``.
+
+:func:`slot_scan_window_cuda` is the kernel's window entry, one stream
+window of a group (``core.emulator.run_stream``): the window's
+``EmulatorState`` in, the state after the window's slots out, under the
+freeze gate and with no trailing pass; its plain version is
+``repro_torch.kernels.ref.slot_scan_window_ref``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.core.faults import (DOMAIN_PARA, FAULT_LOGS, FAULT_SCALARS,
                                      domain_key)
+from repro_torch.core.state import EmulatorState
 from repro_torch.core.threefry import as_int32
 
 FAST_Q = 64        # SCAN_MAX_Q in slot_scan.cu
@@ -41,6 +48,15 @@ RESP_RING = 1024   # SCAN_RESP_RING: the fast instantiation's t_resp ring
 
 STAT_FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
                "smc_fpga_cycles")
+# a stream window's scalars in the kernel's order (WindowIO.scal): the
+# EmulatorState's, then the bank state's channel scalars
+WINDOW_SCALARS = ("ptr", "mc_release", "dram_now", "hits", "served_n",
+                  "smc_fpga_cycles", "last_bank")
+WINDOW_BANK_SCALARS = ("bus_busy", "refs_done")
+WINDOW_BANK_ARRAYS = ("open_row", "ready", "act_at")
+# the fault carry's counters (fstats) and victim log (vlog), kernel order
+WINDOW_FAULT_SCALARS = ("vptr", "ham_flips", "ret_flips", "mitigations")
+WINDOW_FAULT_LOGS = ("vbank", "vrow", "vt")
 # the PARA stream key of seed 0: para_rand's key without a fault model
 PARA_KEY0 = tuple(as_int32(w) for w in domain_key(0, DOMAIN_PARA))
 
@@ -118,18 +134,13 @@ def variant(p: ScanParams, n_scratch: int = 0) -> str:
     return "wide-global" if n_scratch else "wide-shared"
 
 
-def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
-                   tables: Optional[torch.Tensor], costs: torch.Tensor,
-                   p: ScanParams) -> dict:
-    """Launch the kernel on the current stream. Trace arrays ``[B, N]``
-    int32, ``weak`` ``[B, N]`` int8 or None, ``tables`` ``[B, L + 1, 4]``
-    int32 or None, ``costs`` ``[B, 2]`` int32 (counter_inc, smc_latency).
-    Returns the seven output fields as CUDA tensors, and the seven fault
-    fields when ``p.victim_slots > 0``."""
-    from repro_torch.kernels import ops
+def _check_inputs(name, kind, bank, row, delta, dep, weak, tables, costs,
+                  p: ScanParams) -> None:
+    """The checks both entries make of a group's configuration and
+    inputs."""
     dev = kind.device
     if dev.type != "cuda":
-        raise ValueError(f"slot_scan_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     if p.q < 2 or p.window > p.q or p.n_banks < 1 or p.table_len < 0 \
             or p.tREFI < 1:
         raise ValueError(
@@ -155,6 +166,20 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
                dev)
     _check("costs", costs, (p.batch, 2), torch.int32, dev)
 
+
+def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
+                   tables: Optional[torch.Tensor], costs: torch.Tensor,
+                   p: ScanParams) -> dict:
+    """Launch the kernel on the current stream. Trace arrays ``[B, N]``
+    int32, ``weak`` ``[B, N]`` int8 or None, ``tables`` ``[B, L + 1, 4]``
+    int32 or None, ``costs`` ``[B, 2]`` int32 (counter_inc, smc_latency).
+    Returns the seven output fields as CUDA tensors, and the seven fault
+    fields when ``p.victim_slots > 0``."""
+    from repro_torch.kernels import ops
+    _check_inputs("slot_scan_cuda", kind, bank, row, delta, dep, weak,
+                  tables, costs, p)
+    dev = kind.device
+    shape = (p.batch, p.n)
     t_issue = torch.zeros(shape, dtype=torch.int32, device=dev)
     t_resp = torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev)
     stats = torch.zeros((p.batch, len(STAT_FIELDS)), dtype=torch.int32,
@@ -177,15 +202,11 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
             err = lib.slot_scan_launch(*args, ops.stream_handle(dev))
             ops.check_launch("slot_scan", err, variant(p))
         else:
-            n_scratch = lib.slot_scan_wide_scratch_ints(params)
-            if n_scratch < 0:
-                raise ValueError(f"slot_scan: a row's state for {p} cannot "
-                                 f"be indexed with 32-bit offsets")
-            scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
-                if n_scratch else None
+            scratch = _wide_scratch(lib, params, p, dev)
             err = lib.slot_scan_wide_launch(*args, ptr(scratch),
                                             ops.stream_handle(dev))
-            ops.check_launch("slot_scan", err, variant(p, n_scratch))
+            ops.check_launch("slot_scan", err,
+                             variant(p, 0 if scratch is None else 1))
     out = {f: stats[:, i] for i, f in enumerate(STAT_FIELDS)}
     out["t_resp"] = t_resp
     out["t_issue"] = t_issue
@@ -193,3 +214,80 @@ def slot_scan_cuda(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
         out.update({f: fstats[:, i] for i, f in enumerate(FAULT_SCALARS)})
         out.update({f: vlog[:, i] for i, f in enumerate(FAULT_LOGS)})
     return out
+
+
+def _wide_scratch(lib, params, p: ScanParams, dev):
+    """The wide instantiation's global scratch (None when a row's state
+    fits in shared memory)."""
+    n_scratch = lib.slot_scan_wide_scratch_ints(params)
+    if n_scratch < 0:
+        raise ValueError(f"slot_scan: a row's state for {p} cannot be "
+                         f"indexed with 32-bit offsets")
+    return (torch.empty(n_scratch, dtype=torch.int32, device=dev)
+            if n_scratch else None)
+
+
+def slot_scan_window_cuda(st: EmulatorState, kind, bank, row, delta, dep,
+                          weak: Optional[torch.Tensor],
+                          tables: Optional[torch.Tensor], costs: torch.Tensor,
+                          p: ScanParams, final: bool) -> EmulatorState:
+    """Launch the window entry on the current stream: one stream window
+    of ``p.slots`` slots over the window's trace arrays ``[B, n]`` (the
+    inputs of :func:`slot_scan_cuda`) from the shifted window state
+    ``st``, the freeze lifted when ``final``. Returns the state after the
+    window; ``st`` is left as it was."""
+    from repro_torch.kernels import ops
+    _check_inputs("slot_scan_window_cuda", kind, bank, row, delta, dep,
+                  weak, tables, costs, p)
+    dev = kind.device
+    B, nb = p.batch, p.n_banks
+    _check("t_issue", st.t_issue, (B, p.n), torch.int32, dev)
+    _check("t_resp", st.t_resp, (B, p.n), torch.int32, dev)
+    _check("queue", st.queue, (B, p.q), torch.int32, dev)
+    carry = p.victim_slots > 0
+    if carry != bool(st.faults):
+        raise ValueError("slot_scan_window: the state's fault carry and "
+                         "victim_slots disagree")
+    t_issue, t_resp, queue = (st.t_issue.clone(), st.t_resp.clone(),
+                              st.queue.clone())
+    i32 = dict(dtype=torch.int32)
+    scal = torch.stack([getattr(st, f) for f in WINDOW_SCALARS]
+                       + [st.bank[f] for f in WINDOW_BANK_SCALARS],
+                       1).to(**i32).contiguous()
+    bst = torch.stack([st.bank[f] for f in WINDOW_BANK_ARRAYS],
+                      1).to(**i32).contiguous()
+    _check("bank state", bst, (B, 3, nb), torch.int32, dev)
+    hct = fstats = vlog = None
+    if carry:
+        fs = st.faults
+        hct = fs["hct"].to(**i32).contiguous().clone()
+        fstats = torch.stack([fs[f] for f in WINDOW_FAULT_SCALARS],
+                             1).to(**i32).contiguous()
+        vlog = torch.stack([fs[f] for f in WINDOW_FAULT_LOGS],
+                           1).to(**i32).contiguous()
+        _check("hct", hct, (B, nb), torch.int32, dev)
+        _check("victim log", vlog, (B, 3, p.victim_slots), torch.int32, dev)
+    if B > 0:   # an empty batch launches nothing and counts nothing
+        params = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
+        lib = ops.library()
+        bufs = [kind, bank, row, delta, dep, weak, ops.aligned16(tables),
+                costs, t_issue, t_resp, queue, scal, bst, hct, fstats, vlog]
+        arr = (ctypes.c_void_p * len(bufs))(*[ops.ptr(t) for t in bufs])
+        wide = instantiation(p) == "wide"
+        scratch = _wide_scratch(lib, params, p, dev) if wide else None
+        err = lib.slot_scan_window_launch(params, int(bool(final)), arr,
+                                          int(wide), ops.ptr(scratch),
+                                          ops.stream_handle(dev))
+        ops.check_launch("slot_scan_window", err,
+                         variant(p, 0 if scratch is None else 1))
+    scalars = dict(zip(WINDOW_SCALARS + WINDOW_BANK_SCALARS, scal.unbind(1)))
+    faults = {}
+    if carry:
+        faults = {"hct": hct,
+                  **dict(zip(WINDOW_FAULT_LOGS, vlog.unbind(1))),
+                  **dict(zip(WINDOW_FAULT_SCALARS, fstats.unbind(1)))}
+    return EmulatorState(
+        bank={**dict(zip(WINDOW_BANK_ARRAYS, bst.unbind(1))),
+              **{f: scalars[f] for f in WINDOW_BANK_SCALARS}},
+        t_issue=t_issue, t_resp=t_resp, queue=queue,
+        **{f: scalars[f] for f in WINDOW_SCALARS}, faults=faults)

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.core import emulator, smcprog, techniques, traces
+from repro_torch.core import (emulator, faults, smcprog, techniques,
+                              timescale, traces)
 from repro_torch.core.bloom import BloomFilter, words_tensor
 from repro_torch.core.faults import FAULT_LOGS, FAULT_SCALARS, FaultModel
 from repro_torch.core.timescale import JETSON_NANO
@@ -468,6 +469,101 @@ def test_fault_entry_points_on_the_card(cuda_device):
             np.testing.assert_array_equal(a[f], b[f], err_msg=f)
 
 
+# The stream path's window entry on the card: chip_smoke.py's stream cuts
+# (WINDOW_CASES) at a smaller size, every window of the kernel against the
+# plain window step on CPU copies of its inputs, on every state field.
+CARD_WINDOW = dict(n=800, chunk=128)
+STREAM_FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
+                 "smc_fpga_cycles", "avg_load_latency_cycles")
+
+
+def record_windows(monkeypatch):
+    """Route ``ops.slot_scan_window`` through a spy that keeps each call's
+    inputs and the state the kernel returned."""
+    calls = []
+    kernel = ops.slot_scan_window
+
+    def spy(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+    monkeypatch.setattr(ops, "slot_scan_window", spy)
+    return calls
+
+
+def assert_stream_equals_single_shot(got, want, n):
+    for f in STREAM_FIELDS:
+        assert float(got[f]) == float(want[f]), f
+    for f in ("t_resp", "t_issue"):
+        np.testing.assert_array_equal(got[f], want[f][:n], err_msg=f)
+    if "flips" in want:
+        for f in FAULT_SCALARS + FAULT_LOGS + ("bit_error_rate",):
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.WINDOW_CASES))
+def test_slot_scan_window_kernel_matches_plain_step(cuda_device, case,
+                                                    monkeypatch):
+    """Each window's kernel state equals the plain window step's on every
+    field (the legacy scheduler, the policy VM, the fault kernel, PARA
+    without a fault model, Bloom filters, the wide instantiation, a chunk
+    equal to the halo, rows that drain in an interior window); the stream
+    equals single-shot ``run_many`` on the card."""
+    sys_, trs, kw, chunk = chip_smoke.window_case(
+        np, emulator, smcprog, timescale, traces, faults, case, **CARD_WINDOW)
+    calls = record_windows(monkeypatch)
+    ops.reset_launches()
+    got = emulator.run_stream_many(trs, sys_, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    launches, variants = ops.launches(), ops.variants()
+    assert launches["slot_scan_window"] == len(calls) > 1
+    assert launches["slot_scan"] == 0
+    p = calls[0][0][-2]
+    assert p.slots == emulator.stream_slot_budget(chunk, sys_)
+    c = chip_smoke.WINDOW_CASES[case]
+    fault_path = bool(c.get("fault")) or c.get("tables") == "mitigation"
+    assert variant(p) == ("wide-shared" if "wide" in case else
+                          "fast-faults" if fault_path else "fast")
+    assert variants == {f"slot_scan_window/{variant(p)}": len(calls)}
+    if "bloom" in kw:
+        assert launches["bloom_probe"] == len(calls)
+    err = chip_smoke.window_errors(ref, calls)
+    assert not any(err.values()), err
+    for tr, a, b in zip(trs, got, emulator.run_many(trs, sys_, **kw)):
+        assert_stream_equals_single_shot(a, b, tr.n)
+    if case == "chunk-equals-halo":
+        assert chunk == emulator.stream_halo(sys_)
+    if case == "drain-in-interior-window":
+        # a row served its whole stream and emptied its queue in a window
+        # that was not the last
+        served = [int(r["served"]) for r in got]
+        assert any(
+            bool((out.queue[j] < 0).all()) and int(out.served_n[j]) == sv
+            and sv > 0 and k < len(calls) - 1
+            for k, (_, out) in enumerate(calls)
+            for j, sv in enumerate(served))
+    if chip_smoke.WINDOW_CASES[case].get("fault"):
+        assert sum(int(r["flips"]) for r in got) > 0
+
+
+@pytest.mark.cuda
+def test_run_stream_on_the_card_equals_run(cuda_device):
+    """``run_stream`` with the default device (CUDA) against ``run`` on
+    the card and ``run_stream`` on the CPU; nothing falls back."""
+    tr = chip_smoke.materialize(np, emulator, traces.synthetic_stream(
+        700, window=300, seed=2, kinds=5))
+    ops.reset_launches()
+    got = emulator.run_stream(traces.iter_windows(tr, 99), JETSON_NANO,
+                              chunk=64)
+    assert ops.launches()["slot_scan_window"] > 1
+    assert_stream_equals_single_shot(got, emulator.run(tr, JETSON_NANO),
+                                     tr.n)
+    cpu = emulator.run_stream(tr, JETSON_NANO, chunk=64, device="cpu")
+    for f in ("t_resp", "t_issue"):
+        np.testing.assert_array_equal(got[f], cpu[f])
+
+
 class UncheckedProgram(smcprog.PolicyProgram):
     """A program whose registers may point past its rows (``validate``
     refuses that; the reference VM clips and reads the padding)."""
@@ -723,6 +819,13 @@ def test_empty_input_launches_and_counts_nothing(cuda_device, name):
         out = flash_attention_cuda(kv[:0], kv, kv, causal=True)
     elif name == "rowclone_copy":
         out = ops.rowclone_copy(torch.zeros((0, 8), device=cuda_device))
+    elif name == "slot_scan_window":
+        e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
+        costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)
+        st = emulator.EmulatorState.fresh(64, 16, 4, batch=0,
+                                          device=cuda_device)
+        out = ops.slot_scan_window(st, e, e, e, e, e, None, None, costs,
+                                   scan_params(0, 64), True).t_resp
     else:
         e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
         costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)

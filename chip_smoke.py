@@ -22,7 +22,9 @@ Phases, one line each:
    through ``run`` / ``run_policies`` with the default device, the
    launch counters reset just before: every group runs in the wide
    instantiation and equals the plain engine (CPU worker processes) on
-   all seven fields; the batch ``policy_vm`` at a 512-row table against
+   all seven fields; then all the groups in one overlapped executor call
+   (wide groups of different shared-memory sizes side by side), equal to
+   the serial runs; the batch ``policy_vm`` at a 512-row table against
    its plain version;
 5. the main path at full size with the launch counters reset just before
    it: the tRCD case study over twelve PolyBench kernels (base and
@@ -63,6 +65,22 @@ Phases, one line each:
    against the plain window step (CPU worker processes); a 262144-line
    gzip trace file through an LLC, streamed, against ``load_trace_file``
    + ``run``; a Campaign mixing stream and batched points;
+7d. the campaign executor at the main path's size: phase 5's grid (tRCD
+   arms and the reference mode, RowClone copy and init, the built-in
+   policies: at least 12 groups) through ``Campaign.run`` serial and
+   overlapped in turns, equal on every field with the same launches, the
+   overlapped run on more than one CUDA stream, its device span beside the
+   sum of its launches; the grid checkpointed and resumed (nothing
+   launched, the same records) and with a poisoned group quarantined (the
+   others exact); phase 7c's streams through the executor's window loop
+   (next window assembled during the scan, copy-back one window behind)
+   against a feeder-thread loop, the serial window loop and single-shot
+   in turns, equal, with their requests/s and peak device memory (the
+   executor's no more than the serial loop's); ``policysearch.search`` at
+   its defaults on the first PolyBench trace, and at a 2048-request cut against the same
+   search on the plain engine (a CPU worker process started with the
+   script); ``SchedulingPolicyStudy`` over the twelve PolyBench traces and
+   every built-in, ``policy_axis`` True and False equal;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
@@ -196,6 +214,11 @@ WINDOW_CASES = {
     "chunk-equals-halo": {"chunk": "halo", "n": 400},
     "drain-in-interior-window": {"lengths": (1.0, 0.2, 0.01, 0.0)},
 }
+# phase 7d: the policy search at a cut of the first PolyBench trace, held
+# against the same search on the plain engine (a worker process started
+# with the script), and its seed
+SEARCH_CUT, SEARCH_SEED = 2048, 0
+ROWCLONE_SIZES = (64 << 10, 1 << 20, 4 << 20)   # phases 5 and 7d
 VM_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)   # phase 3
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
@@ -296,21 +319,25 @@ class Recorder:
     CUDA tensors to the plain versions instead."""
 
     def __init__(self, ops, ref, nop, big):
+        import threading
         self.ops, self.ref, self.nop, self.big = ops, ref, nop, big
         self.orig = {name: getattr(ops, name) for name in ops.KERNELS}
         self.bloom_args = None
         self.groups = []
         self.windows = []
         self.tag = ""
+        # the executor's workers launch from several threads at once
+        self.lock = threading.Lock()
 
     def record(self):
         import torch
         o = self.orig
 
         def bp(words, keys, k, m_bits):
-            if self.bloom_args is None \
-                    or keys.numel() > self.bloom_args[1].numel():
-                self.bloom_args = (words, keys, k, m_bits)
+            with self.lock:
+                if self.bloom_args is None \
+                        or keys.numel() > self.bloom_args[1].numel():
+                    self.bloom_args = (words, keys, k, m_bits)
             return o["bloom_probe"](words, keys, k, m_bits)
 
         def ss(*args):
@@ -320,8 +347,10 @@ class Recorder:
                   f"{self.tag}: a request was not served")
             check(bool((out["t_resp"][real] < self.big).all()),
                   f"{self.tag}: a served request has no response tag")
-            self.groups.append({"tag": self.tag, "args": args, "out": {
-                f: v.cpu().numpy() for f, v in out.items()}})
+            host = {f: v.cpu().numpy() for f, v in out.items()}
+            with self.lock:
+                self.groups.append({"tag": self.tag, "args": args,
+                                    "out": host})
             return out
 
         def ssw(st, kind, *rest):
@@ -341,9 +370,10 @@ class Recorder:
                 check(bool(served[:, :chunk][real[:, :chunk]].all())
                       and bool((out.ptr > p.n - 4).all()),
                       f"{self.tag}: a window retires an unserved request")
-            self.windows.append({"tag": self.tag,
-                                 "args": (st, kind) + tuple(rest),
-                                 "out": out})
+            with self.lock:
+                self.windows.append({"tag": self.tag,
+                                     "args": (st, kind) + tuple(rest),
+                                     "out": out})
             return out
 
         self.ops.bloom_probe, self.ops.slot_scan = bp, ss
@@ -631,21 +661,21 @@ def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
     bl2 = (techniques.BloomFilter.build(other).bits, bl[1], bl[2])
     builtins = list(smcprog.builtin_programs().values())
     cases = [
-        ("modes", lambda: emu.run_many(
+        ("modes", lambda **kw: emu.run_many(
             trs * 3, jn, ["ts"] * 4 + ["reference"] * 4 + ["nots"] * 4,
-            device=dev)),
-        ("fcfs", lambda: emu.run_many(
+            device=dev, **kw)),
+        ("fcfs", lambda **kw: emu.run_many(
             trs, dataclasses.replace(jn, scheduler="fcfs"), "nots",
-            device=dev)),
-        ("staged", lambda: emu.run_many(
+            device=dev, **kw)),
+        ("staged", lambda **kw: emu.run_many(
             trs, jn.with_policy(smcprog.bank_round_robin_program()), "nots",
-            device=dev)),
-        ("policies", lambda: emu.run_policies(trs[0], jn, builtins,
-                                              mode="nots", device=dev)),
-        ("shared-bloom", lambda: emu.run_many(trs, jn, "ts", blooms=bl,
-                                              device=dev)),
-        ("per-trace-bloom", lambda: emu.run_many(
-            trs, jn, "ts", blooms=[bl, bl2, bl, bl2], device=dev)),
+            device=dev, **kw)),
+        ("policies", lambda **kw: emu.run_policies(
+            trs[0], jn, builtins, mode="nots", device=dev, **kw)),
+        ("shared-bloom", lambda **kw: emu.run_many(
+            trs, jn, "ts", blooms=bl, device=dev, **kw)),
+        ("per-trace-bloom", lambda **kw: emu.run_many(
+            trs, jn, "ts", blooms=[bl, bl2, bl, bl2], device=dev, **kw)),
     ]
     times = {}
     for label, fn in cases:
@@ -654,7 +684,9 @@ def phase_scan(np, rec, emu, techniques, timescale, traces, smcprog, geo,
         got = fn()
         t2 = time.perf_counter()
         rec.plain()
-        want = fn()
+        # the plain engine is ~1e3 small launches a slot from Python: in
+        # the executor's threads they would contend for the GIL
+        want = fn(serial=True)
         t3 = time.perf_counter()
         rec.restore()
         same_results(got, want, label)
@@ -677,6 +709,7 @@ def phase_wide(np, torch, ops, ref, emu, smcprog, timescale, vm_env, dev):
     default device; every group against the plain engine on all seven
     fields (CPU worker processes); the batch ``policy_vm`` at a 512-row
     table. Returns the launches, the instantiations and a detail dict."""
+    from repro_torch.core import executor
     from repro_torch.kernels.slot_scan import instantiation
     jn = timescale.JETSON_NANO
     cases = []
@@ -696,13 +729,14 @@ def phase_wide(np, torch, ops, ref, emu, smcprog, timescale, vm_env, dev):
     ops.reset_launches()
     rec.record()
     t0 = time.perf_counter()
+    serial = {}
     for name, sys_, tr, progs in cases:
         rec.tag = name
         if progs:
-            emu.run_policies(tr, sys_, progs, mode="nots")
+            serial[name] = emu.run_policies(tr, sys_, progs, mode="nots")
         else:
-            for mode in ("ts", "nots"):
-                emu.run(tr, sys_, mode)
+            serial[name] = [emu.run(tr, sys_, mode)
+                            for mode in ("ts", "nots")]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, variants = ops.launches(), ops.variants()
@@ -712,6 +746,28 @@ def phase_wide(np, torch, ops, ref, emu, smcprog, timescale, vm_env, dev):
           and all(k.startswith("slot_scan/wide") for k in variants),
           f"phase 4b: {len(groups)} groups, launches {counts}, "
           f"instantiations {variants}")
+    # every group again in one overlapped executor call: wide groups of
+    # different shared-memory sizes launch side by side on the workers'
+    # streams, each equal to its serial (plain-checked) run
+    overlapped, tasks = {}, []
+    for name, sys_, tr, progs in cases:
+        overlapped[name] = [None] * len(serial[name])
+        if progs:
+            tasks += emu.prepare_tasks(
+                [tr] * len(progs), sys_, "nots", None, overlapped[name],
+                policies=progs, policy_costs=[p.smc_cycles() for p in progs])
+        else:
+            tasks += emu.prepare_tasks([tr, tr], sys_, ["ts", "nots"], None,
+                                       overlapped[name])
+    ops.reset_launches()
+    check(executor.execute(tasks, serial=False) == [],
+          "phase 4b: an overlapped wide group failed")
+    torch.cuda.synchronize()
+    check(ops.launches()["slot_scan"] == len(tasks) == len(groups),
+          f"phase 4b overlapped: launches {ops.launches()}")
+    for name in serial:
+        same_records(np, overlapped[name], serial[name],
+                     f"phase 4b overlapped {name}")
     kern = rec.orig["slot_scan"]
     timed = []
     for g in groups:
@@ -739,7 +795,8 @@ def phase_wide(np, torch, ops, ref, emu, smcprog, timescale, vm_env, dev):
     say(f"phase 4b wide shapes: slot_scan == plain engine on all 7 fields "
         f"for {len(cases)} shapes ({', '.join(WIDE_SHAPES)}) in "
         f"{len(groups)} groups, launches {counts['slot_scan']} "
-        f"{variants}, {wall:.2f} s; kernel ns per slot "
+        f"{variants}, {wall:.2f} s; the {len(tasks)} groups overlapped in "
+        f"one executor call == serial; kernel ns per slot "
         + ", ".join(f"{t['tag']} {t['ns_per_slot']:.0f}" for t in timed)
         + f"; plain engine {plain['plain_cpu_s']:.1f} CPU-s in "
         f"{plain['workers']} processes; policy_vm exact at "
@@ -779,7 +836,7 @@ def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
     rec.tag = "ts-reference"
     tsref = c.run(device=dev)
     t3 = time.perf_counter()
-    sizes = [64 << 10, 1 << 20, 4 << 20]
+    sizes = list(ROWCLONE_SIZES)
     rc_res = {}
     for w in ("copy", "init"):
         rec.tag = f"rowclone-{w}"
@@ -833,7 +890,8 @@ def phase_main(np, torch, ops, rec, emu, techniques, timescale, traces,
                    "rowclone": t4 - t3, "policies": t5 - t4,
                    "trace_setup": t_setup},
         "n_requests": n_req, "slower_at_reduced_trcd": slower}
-    return counts, detail, {emu._bucket(trs[i].n) for i in slower}
+    return (counts, detail, {emu._bucket(trs[i].n) for i in slower},
+            (trs, bloom, rc.device))
 
 
 def bound_ms(nbytes, nops):
@@ -1560,6 +1618,373 @@ def phase_stream(np, torch, ops, ref, emu, smcprog, timescale, traces,
         "trace_file_stream_s": file_stream_s}
 
 
+def same_records(np, a, b, label):
+    """Two record lists equal on every key of every record."""
+    check(len(a) == len(b), f"{label}: record counts differ")
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        check(set(ra) == set(rb), f"{label}: record {i} has other keys")
+        for k, v in ra.items():
+            w = rb[k]
+            same = (np.array_equal(v, w)
+                    if isinstance(v, np.ndarray) or isinstance(w, np.ndarray)
+                    else v == w)
+            check(bool(same), f"{label}: record {i} differs on {k}")
+
+
+def search_job(arrays, seed):
+    """``policysearch.search`` at its defaults on the plain engine
+    (``device='cpu'``) in a worker process, over a trace given as arrays;
+    returns what the card's search must equal and the seconds it took."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.core import emulator, policysearch, timescale
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = policysearch.search(emulator.Trace(**arrays),
+                              timescale.JETSON_NANO, seed=seed, device="cpu")
+    return search_summary(res), time.perf_counter() - t0
+
+
+def search_summary(res):
+    return {"best": res.best.digest, "best_fitness": res.best_fitness,
+            "baseline_fitness": res.baseline_fitness,
+            "history": res.history, "leaderboard": res.leaderboard,
+            "n_evaluated": res.n_evaluated,
+            "n_dispatches": res.n_dispatches}
+
+
+def serial_window_loop(task):
+    """One stream task's windows in order on this thread, each window's
+    assembly, scan and copy-back one after another: the window loop as it
+    ran before the executor."""
+    state, ctx = task.pack()
+    for args in task.windows(ctx):
+        state, out = task.fn(state, *args)
+        task.consume(tuple(o.cpu().numpy() for o in out), ctx)
+    task.finalize(state, ctx)
+
+
+def feeder_window_loop(task, depth=2):
+    """One stream task's windows with a feeder thread that assembles up
+    to ``depth`` windows ahead through a bounded queue (the reference
+    executor's prefetch design), copied back one window behind as in
+    ``StreamTask.run``: the two-thread design, measured beside the
+    executor's one-thread loop."""
+    import queue
+    import threading
+    from repro_torch.core.executor import _landed, _to_host_async
+    state, ctx = task.pack()
+    q = queue.Queue(maxsize=depth)
+
+    def feed():
+        try:
+            for args in task.windows(ctx):
+                q.put(args)
+            q.put(None)
+        except BaseException as e:   # surfaces on the consuming thread
+            q.put(e)
+
+    th = threading.Thread(target=feed, daemon=True)
+    th.start()
+    behind = None
+    while (args := q.get()) is not None:
+        if isinstance(args, BaseException):
+            raise args
+        state, out = task.fn(state, *args)
+        ahead, out = _to_host_async(out), None
+        if behind is not None:
+            task.consume(_landed(behind), ctx)
+        behind = ahead
+    task.consume(_landed(behind), ctx)
+    th.join()
+    task.finalize(state, ctx)
+
+
+def grid_campaign(campaign, traces, jn, trs, bloom, rc_device, builtins):
+    """Phase 5's main path as one Campaign: both tRCD arms and the
+    reference mode of every PolyBench trace, the RowClone copy and init
+    traces of both arms at every size, and the built-in policy grid."""
+    geo = jn.geometry
+    c = campaign.Campaign()
+    for i, tr in enumerate(trs):
+        c.add(tr, jn, i=i, arm="base")
+        c.add(tr, jn, bloom=bloom, i=i, arm="reduced")
+        c.add(tr, jn, mode="reference", bloom=bloom, i=i, arm="reference")
+    for w, gen in (("copy", traces.copy_workload),
+                   ("init", traces.init_workload)):
+        for nb in ROWCLONE_SIZES:
+            for arm in ("cpu", "rowclone"):
+                tr, _ = gen(nb, geo, mode=arm, device=rc_device,
+                            setting="noflush")
+                c.add(tr, jn, workload=w, size=nb, arm=arm)
+    c.add_policy_grid(trs[0], jn, builtins, arm="policy")
+    return c
+
+
+def phase_executor(np, torch, ops, emu, campaign, techniques, policysearch,
+                   smcprog, traces, timescale, inputs, stream_detail,
+                   cpu_search):
+    """Phase 7d, the campaign executor at the main path's size: (i) phase
+    5's grid through ``Campaign.run`` overlapped and serial in turns
+    (serial, overlapped, overlapped, serial), equal on every field, with
+    the same launches, the overlapped run on more than one CUDA stream,
+    its device span beside the sum of its launches; (ii) checkpoint and
+    resume (nothing launched), and quarantine of a poisoned group; (iii)
+    phase 7c's streams through the executor's window loop against a
+    feeder-thread loop, the serial window loop and single-shot, in turns,
+    with their peak device memory; (iv) ``policysearch.search`` at its defaults on a phase-5
+    trace, and at a cut against the plain engine's search (run in a worker
+    process since the start of the script); (v)
+    ``SchedulingPolicyStudy`` over the PolyBench traces with every
+    built-in, ``policy_axis`` True and False equal."""
+    import shutil
+    import tempfile
+    import threading
+    jn = timescale.JETSON_NANO
+    trs, bloom, rc_device = inputs
+    builtins = list(smcprog.builtin_programs().values())
+    grid = grid_campaign(campaign, traces, jn, trs, bloom, rc_device,
+                         builtins)
+    n_groups = grid.n_groups()
+    check(n_groups >= 12, f"phase 7d: the grid has {n_groups} groups")
+
+    # (i) overlapped against serial, in turns; the streams that launched,
+    # and (in one more overlapped run) a pair of CUDA events around each
+    # launch on its own stream: each launch's device time, and the span
+    # from the first start to the last end, all from one event recorded
+    # on this thread's stream before the run (the workers' streams wait
+    # for it)
+    orig = ops.slot_scan
+    lock, seen, events = threading.Lock(), [], []
+
+    def ss(*args):
+        h = ops.stream_handle(args[0].device)
+        ev = None
+        if timing:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = orig(*args)
+        with lock:
+            seen.append(h)
+            if ev is not None:
+                ev[1].record()
+                events.append(ev)
+        return out
+
+    timing = False
+
+    ops.slot_scan = ss
+    walls = {"serial": [], "overlapped": []}
+    recs, counts, streams = {}, {}, {}
+    try:
+        for how in ("serial", "overlapped", "overlapped", "serial") * 2:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            seen.clear()
+            t0 = time.perf_counter()
+            out = grid.run(serial=how == "serial")
+            torch.cuda.synchronize()
+            walls[how].append(time.perf_counter() - t0)
+            recs.setdefault(how, out)
+            counts.setdefault(how, ops.launches())
+            streams.setdefault(how, set(seen))
+            check(grid.last_run["computed"] == n_groups,
+                  f"phase 7d: {how} run {grid.last_run}")
+        timing = True
+        torch.cuda.synchronize()
+        base = torch.cuda.Event(enable_timing=True)
+        base.record()
+        grid.run()
+        torch.cuda.synchronize()
+        timing = False
+    finally:
+        ops.slot_scan = orig
+    span = {"launches": len(events),
+            "sum_ms": sum(a.elapsed_time(b) for a, b in events),
+            "span_ms": max(base.elapsed_time(b) for _, b in events)
+            - min(base.elapsed_time(a) for a, _ in events),
+            "method": "cuda events around each launch"}
+    same_records(np, recs["overlapped"], recs["serial"],
+                 "phase 7d overlapped vs serial")
+    check(counts["overlapped"] == counts["serial"]
+          and counts["serial"]["slot_scan"] == n_groups
+          and counts["serial"]["bloom_probe"] > 0,
+          f"phase 7d: launches {counts}")
+    check(len(streams["overlapped"]) > 1,
+          f"phase 7d: every overlapped launch used one stream "
+          f"({len(streams['overlapped'])})")
+
+    # (ii) checkpoint and resume; quarantine
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        grid.run(checkpoint=tmp)
+        check(grid.last_run["computed"] == n_groups
+              and len(os.listdir(tmp)) == n_groups,
+              f"phase 7d: checkpointing wrote {len(os.listdir(tmp))} files")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resumed = grid.run(checkpoint=tmp)
+        resume_s = time.perf_counter() - t0
+        resume_launches = ops.launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(grid.last_run["loaded"] == grid.last_run["groups"] == n_groups
+          and not any(resume_launches.values()),
+          f"phase 7d: the resumed run {grid.last_run} launched "
+          f"{resume_launches}")
+    same_records(np, resumed, recs["serial"], "phase 7d resumed")
+    poison_sys = dataclasses.replace(
+        jn, smc_cycles_per_decision=jn.smc_cycles_per_decision + 1)
+    bad = emu.Trace.of(np.zeros(300), np.full(300, jn.geometry.n_banks),
+                       np.zeros(300), np.ones(300))
+    quarantined = grid_campaign(campaign, traces, jn, trs, bloom, rc_device,
+                                builtins)
+    quarantined.add(bad, poison_sys, arm="poison")
+    quarantined.add(bad, poison_sys, mode="reference", arm="poison")
+    q = quarantined.run(on_error="quarantine")
+    lr = quarantined.last_run
+    check(lr["failed"] == 1 and lr["computed"] == n_groups
+          and all(r.get("error_type") == "ValueError" for r in q[-2:]),
+          f"phase 7d: quarantine {lr}")
+    same_records(np, q[:-2], recs["serial"], "phase 7d quarantined grid")
+
+    # (iii) the stream path: the executor's window loop (next window
+    # assembled while the scan runs, copy-back one window behind) against
+    # a feeder thread doing the assembly, the serial window loop and
+    # single-shot, in turns, with each run's peak device memory
+    def streams_of(n):
+        return [lambda i=i: traces.synthetic_stream(n, window=STREAM_CHUNK,
+                                                    seed=i)
+                for i in range(STREAM_N)]
+
+    def executor_loop():
+        return emu.run_stream_many(streams_of(STREAM_REQUESTS), jn, "ts",
+                                   chunk=STREAM_CHUNK, collect="full")
+
+    def task_loop(loop):
+        out = [None] * STREAM_N
+        for t in emu.prepare_stream_tasks(streams_of(STREAM_REQUESTS), jn,
+                                          "ts", None, out, chunk=STREAM_CHUNK,
+                                          collect="full"):
+            loop(t)
+        return out
+
+    whole = [materialize(np, emu, traces.synthetic_stream(
+        STREAM_REQUESTS, window=STREAM_CHUNK, seed=i))
+        for i in range(STREAM_N)]
+    runs = {"executor": executor_loop,
+            "feeder": lambda: task_loop(feeder_window_loop),
+            "serial_loop": lambda: task_loop(serial_window_loop),
+            "single_shot": lambda: emu.run_many(whole, jn, "ts")}
+    stream_walls = {k: [] for k in runs}
+    stream_peak = {k: [] for k in runs}
+    got = {}
+    for name in list(runs) + list(runs)[::-1]:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got[name] = runs[name]()
+        torch.cuda.synchronize()
+        stream_walls[name].append(time.perf_counter() - t0)
+        stream_peak[name].append(torch.cuda.max_memory_allocated() - base)
+        if name == "executor":
+            n_windows = ops.launches()["slot_scan_window"]
+    for name in ("feeder", "serial_loop"):
+        same_records(np, got["executor"], got[name],
+                     f"phase 7d executor loop vs {name}")
+    for i, (a, b) in enumerate(zip(got["executor"], got["single_shot"])):
+        same_stream(np, a, b, STREAM_REQUESTS, f"phase 7d stream {i}")
+    check(max(stream_peak["executor"]) <= min(stream_peak["serial_loop"]),
+          f"phase 7d: the executor's window loop holds more device memory "
+          f"than the serial window loop: {stream_peak}")
+    total = STREAM_N * STREAM_REQUESTS
+    rate = {k: [total / w for w in v] for k, v in stream_walls.items()}
+
+    # (iv) the policy search: defaults on a phase-5 trace, then the cut
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = policysearch.search(trs[0], jn, seed=SEARCH_SEED)
+    full_s = time.perf_counter() - t0
+    cut = emu.Trace(*(getattr(trs[0], f)[:SEARCH_CUT]
+                      for f in ("kind", "bank", "row", "delta", "dep")))
+    t0 = time.perf_counter()
+    card_cut = search_summary(policysearch.search(cut, jn, seed=SEARCH_SEED))
+    card_cut_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_cut, plain_cut_s = cpu_search.get()
+    wait_s = time.perf_counter() - t0
+    check(card_cut == plain_cut,
+          f"phase 7d: the search at the cut differs from the plain "
+          f"engine's: {card_cut} vs {plain_cut}")
+
+    # (v) the scheduling study over every PolyBench trace and built-in
+    study = techniques.SchedulingPolicyStudy(jn)
+    t0 = time.perf_counter()
+    axis = study.evaluate_traces(trs)
+    axis_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = study.evaluate_traces(trs, policy_axis=False)
+    staged_s = time.perf_counter() - t0
+    check(axis == staged, "phase 7d: the study differs between policy_axis "
+                          "True and False")
+
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    span_txt = (f"{span['span_ms']:.2f} ms of device span for "
+                f"{span['launches']} launches summing {span['sum_ms']:.2f} "
+                f"ms (CUDA events)")
+    host = stream_detail["host_ms_per_window"]
+    peak = stream_detail["peak_device_bytes"]
+    say(f"phase 7d executor: phase 5's grid ({len(grid)} points, "
+        f"{n_groups} groups) through Campaign.run: overlapped == serial on "
+        f"every field, launches {counts['serial']} both; wall serial "
+        f"{[round(w, 4) for w in walls['serial']]} s, overlapped "
+        f"{[round(w, 4) for w in walls['overlapped']]} s; "
+        f"{len(streams['overlapped'])} CUDA streams launched slot_scan "
+        f"overlapped ({len(streams['serial'])} serial); overlapped "
+        f"{span_txt}")
+    say(f"phase 7d checkpoint: resumed run loaded {n_groups} of {n_groups} "
+        f"groups in {resume_s:.3f} s, launched nothing, records equal; "
+        f"quarantine: the poisoned group failed alone, the other "
+        f"{n_groups} groups equal the serial run")
+    say(f"phase 7d stream: {STREAM_N} x {STREAM_REQUESTS} requests, the "
+        f"executor's window loop == feeder thread == serial window loop == "
+        f"single-shot on every field; {n_windows} windows; requests/s in "
+        f"turns: " + ", ".join(
+            f"{k} {[round(r) for r in v]}" for k, v in rate.items())
+        + "; peak device bytes: " + ", ".join(
+            f"{k} {v}" for k, v in stream_peak.items())
+        + "; host ms per window by part (phase 7c) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in host.items())
+        + f"; phase 7c peak device memory {peak} bytes")
+    say(f"phase 7d policy search: defaults on {traces.POLYBENCH[0].name} "
+        f"({trs[0].n_real} requests): {full.n_evaluated} programs in "
+        f"{full.n_dispatches} generations, {full_s:.2f} s, best "
+        f"{full.best.digest} x{full.improvement:.4f} vs "
+        f"{full.baseline.name}; at a {SEARCH_CUT}-request cut the card's "
+        f"search ({card_cut_s:.2f} s) == the plain engine's "
+        f"({plain_cut_s:.1f} CPU-s, waited {wait_s:.1f} s): best digest, "
+        f"fitness, history and leaderboard")
+    say(f"phase 7d SchedulingPolicyStudy: {len(trs)} traces x "
+        f"{len(builtins)} built-ins, policy_axis True {axis_s:.2f} s == "
+        f"False {staged_s:.2f} s")
+    return {
+        "groups": n_groups, "points": len(grid), "wall_s": walls,
+        "median_wall_s": med, "launches": counts["serial"],
+        "streams": {k: len(v) for k, v in streams.items()},
+        "overlapped_device": span, "resume_s": resume_s,
+        "quarantine": {k: lr[k] for k in ("groups", "computed", "failed")},
+        "stream": {"windows": n_windows, "wall_s": stream_walls,
+                   "requests_per_s": rate, "peak_device_bytes": stream_peak},
+        "search": {"full_s": full_s, "full": search_summary(full),
+                   "cut_card_s": card_cut_s, "cut_plain_cpu_s": plain_cut_s,
+                   "cut_wait_s": wait_s, "cut": card_cut},
+        "study_s": {"policy_axis": axis_s, "staged": staged_s}}
+
+
 def close(got, want, atol, rtol):
     """Elementwise ``|got - want| <= atol + rtol * |want|`` (numpy's
     allclose) on float32 copies; returns (ok, max abs err)."""
@@ -1992,7 +2417,8 @@ def main(argv=None):
     try:
         from repro_torch.core import (bloom as bloom_mod, cachesim, campaign,
                                       dram, emulator as emu, faults,
-                                      smcprog, techniques, timescale, traces)
+                                      policysearch, smcprog, techniques,
+                                      timescale, traces)
         from repro_torch import configs
         from repro_torch.kernels import ops, ref
         from repro_torch.models import model_zoo
@@ -2006,6 +2432,12 @@ def main(argv=None):
     geo = timescale.JETSON_NANO.geometry
     rec = Recorder(ops, ref, dram.NOP, emu.BIG)
     report = {"device": torch.cuda.get_device_name(0)}
+    # phase 7d's plain-engine search runs beside every phase before it
+    first, _ = traces.polybench_trace(traces.POLYBENCH[0], geo)
+    search_pool = multiprocessing.get_context("spawn").Pool(1)
+    cpu_search = search_pool.apply_async(search_job, ({
+        f: getattr(first, f)[:SEARCH_CUT]
+        for f in ("kind", "bank", "row", "delta", "dep")}, SEARCH_SEED))
     try:
         t0 = time.perf_counter()
         ops.library()
@@ -2022,7 +2454,7 @@ def main(argv=None):
             np, rec, emu, techniques, timescale, traces, smcprog, geo, dev)
         report["wide"] = phase_wide(np, torch, ops, ref, emu, smcprog,
                                     timescale, vm_args[1], dev)
-        counts, report["main"], slower_buckets = phase_main(
+        counts, report["main"], slower_buckets, main_inputs = phase_main(
             np, torch, ops, rec, emu, techniques, timescale, traces, campaign,
             smcprog, geo, dev)
         for name in PATH_KERNELS:
@@ -2052,6 +2484,9 @@ def main(argv=None):
             cachesim, campaign)
         window_entry["max_abs_err"] = float(err)
         kernels.append(window_entry)
+        report["executor"] = phase_executor(
+            np, torch, ops, emu, campaign, techniques, policysearch, smcprog,
+            traces, timescale, main_inputs, report["stream"], cpu_search)
 
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)
@@ -2070,6 +2505,8 @@ def main(argv=None):
         return 1
     finally:
         rec.restore()
+        search_pool.terminate()
+        search_pool.join()
     report["kernels"] = kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -28,10 +28,16 @@ power of two with all-NOP rows, and runs each group as one batch:
   runs every row through the exact slot budget;
 * on the CPU (``device="cpu"``), the plain PyTorch versions of both.
 
+Each group is a :class:`~repro_torch.core.executor.GroupTask` planned by
+:func:`prepare_tasks` on the caller's thread; the groups of one call run
+overlapped across the ``core.executor`` workers, each on a CUDA stream of
+its own, or in order under ``serial=True``, with equal results.
+
 :func:`run_stream` / :func:`run_stream_many` take traces too long to
 materialize, in constant-memory windows (the section at the end): one
 launch of the ``slot_scan`` kernel's window entry per window, with
-results equal to :func:`run_many`'s.
+results equal to :func:`run_many`'s; the next window is assembled while
+the current one's scan runs, and each window is copied back one behind.
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a CUDA
 device they raise rather than run on the CPU unasked.
@@ -39,13 +45,14 @@ device they raise rather than run on the CPU unasked.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import smcprog
+from repro_torch.core import executor, smcprog
 from repro_torch.core.bloom import words_tensor
 from repro_torch.core.dram import NOP, neighbor_refresh_ticks
 from repro_torch.core.faults import (DOMAIN_HAMMER, DOMAIN_PARA,
@@ -62,10 +69,11 @@ from repro_torch.kernels.ref import FP, FRONTIER_UPTO
 from repro_torch.kernels.slot_scan import ScanParams
 
 __all__ = ["BIG", "FP", "EmulatorState", "Trace", "pad_trace",
-           "slot_budget", "group_key", "resolve_device", "run", "run_many",
-           "run_policies", "StreamState", "DEFAULT_STREAM_CHUNK",
-           "DEFAULT_STREAM_DEP", "stream_halo", "stream_slot_budget",
-           "shift_window", "run_stream", "run_stream_many"]
+           "slot_budget", "group_key", "resolve_device", "prepare_tasks",
+           "run", "run_many", "run_policies", "StreamState",
+           "DEFAULT_STREAM_CHUNK", "DEFAULT_STREAM_DEP", "stream_halo",
+           "stream_slot_budget", "shift_window", "prepare_stream_tasks",
+           "run_stream", "run_stream_many"]
 
 
 @dataclasses.dataclass
@@ -353,41 +361,131 @@ def _probe(bf, bank: torch.Tensor, row: torch.Tensor,
     return ops.bloom_probe(words, keys, k, m_bits)
 
 
-def _run_group(traces, idxs, bucket, gmode, lb, sys, modes, blooms, pol,
-               device, results) -> None:
-    """Pad, stack and run one (bucket, mode, table-bucket) group."""
+def _pinned(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor, in pinned memory when bound for a card."""
+    t = torch.from_numpy(a)
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: on a card through a pinned buffer and a
+    copy that does not block the host, so that one group's upload
+    overlaps another group's scan (the host allocator keeps the buffer
+    until the copy is done)."""
+    return _pinned(a, device).to(device, non_blocking=True)
+
+
+def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
+                  mode: Union[str, Sequence[str]], blooms,
+                  results: List[Optional[dict]], policies=None,
+                  policy_costs=None, device=None
+                  ) -> List[executor.GroupTask]:
+    """Plan one :func:`run_many` call into
+    :class:`~repro_torch.core.executor.GroupTask`s without running them.
+
+    Grouping (length bucket, normalized mode, policy-table bucket), slot
+    budgets and the kernel library's build happen here, on the caller's
+    thread; each task's ``pack`` pads, stacks and uploads its group, its
+    ``fn`` launches ``bloom_probe`` (with a filter) and ``slot_scan``, and
+    its ``finalize`` writes the group's records into its own ``results``
+    slots (``results`` is a list of ``len(traces)`` Nones)."""
+    dev = resolve_device(device)
+    traces = list(traces)
+    n = len(traces)
+    modes = _check_modes([mode] * n if isinstance(mode, str) else mode, n)
+    blooms = _normalize_blooms(blooms, n)
+    pol = _normalize_policies(policies, policy_costs, sys, n)
     geo = sys.geometry
-    padded = [pad_trace(traces[i], bucket) for i in idxs]
-    bb = _batch_bucket(len(idxs))
-    if bb > len(idxs):  # all-NOP filler rows, discarded below
-        filler = Trace.of(np.full(bucket, NOP), np.zeros(bucket),
-                          np.zeros(bucket), np.zeros(bucket))
-        padded += [filler] * (bb - len(idxs))
-    stacked = {f: np.stack([getattr(p, f) for p in padded])
-               for f in ("kind", "bank", "row", "delta", "dep")}
-    if stacked["bank"].min() < 0 or stacked["bank"].max() >= geo.n_banks:
-        raise ValueError(f"trace banks must lie in [0, {geo.n_banks})")
-    kind, bank, row, delta, dep = (
-        torch.from_numpy(stacked[f]).to(device)
-        for f in ("kind", "bank", "row", "delta", "dep"))
+    groups: dict = {}
+    for i, tr in enumerate(traces):
+        lb = None if pol is None else smcprog.table_bucket(pol[0][i].n_ops)
+        groups.setdefault(
+            (_bucket(tr.n), _norm_mode(modes[i]), lb), []).append(i)
+    if groups and dev.type == "cuda":
+        ops.library()           # build once, before any worker starts
 
-    bf = _group_blooms(blooms, idxs, bb, device)
-    weak = None if bf is None else _probe(bf, bank, row, geo.n_rows)
+    tasks: List[executor.GroupTask] = []
+    for (bucket, gmode, lb), idxs in groups.items():
+        slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
+        bb = _batch_bucket(len(idxs))
 
-    tables, costs, lb, para = _group_tables(sys, idxs, lb, pol, bb, device)
-    slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
-    p = _scan_params(sys, gmode, bb, bucket, slots, lb, weak is not None,
-                     para)
-    out = ops.slot_scan(kind, bank, row, delta, dep, weak, tables, costs, p)
-    host = {kk: v.cpu().numpy() for kk, v in out.items()}
-    for j, i in enumerate(idxs):
-        results[i] = _finalize({kk: v[j] for kk, v in host.items()},
-                               padded[j], sys, modes[i])
+        def pack(idxs=idxs, bucket=bucket, gmode=gmode, lb=lb, slots=slots,
+                 bb=bb):
+            padded = [pad_trace(traces[i], bucket) for i in idxs]
+            if bb > len(idxs):  # all-NOP filler rows, discarded below
+                filler = Trace.of(np.full(bucket, NOP), np.zeros(bucket),
+                                  np.zeros(bucket), np.zeros(bucket))
+                padded += [filler] * (bb - len(idxs))
+            stacked = [np.stack([getattr(p, f) for p in padded])
+                       for f in TRACE_FIELDS]
+            if stacked[1].min() < 0 or stacked[1].max() >= geo.n_banks:
+                raise ValueError(
+                    f"trace banks must lie in [0, {geo.n_banks})")
+            arrays = tuple(_upload(a, dev) for a in stacked)
+            bf = _group_blooms(blooms, idxs, bb, dev)
+            tables, costs, tlb, para = _group_tables(sys, idxs, lb, pol, bb,
+                                                     dev)
+            p = _scan_params(sys, gmode, bb, bucket, slots, tlb,
+                             bf is not None, para)
+            return arrays + (bf, tables, costs, p), padded
+
+        def finalize(out, padded, idxs=idxs):
+            for j, i in enumerate(idxs):
+                results[i] = _finalize({kk: v[j] for kk, v in out.items()},
+                                       padded[j], sys, modes[i])
+
+        ptag = "" if lb is None else f":pol{lb}"
+        tasks.append(executor.GroupTask(
+            fn=_launch_group, pack=pack, finalize=finalize,
+            label=f"b{bucket}x{len(idxs)}:{gmode}{ptag}", cost=slots * bb,
+            device=dev))
+    return tasks
+
+
+def _launch_group(kind, bank, row, delta, dep, bf, tables, costs,
+                  p: ScanParams) -> dict:
+    """One group's launches on the current stream: the Bloom probe of
+    every request (with a filter), then the slot scan."""
+    weak = None if bf is None else _probe(bf, bank, row, p.n_rows)
+    return ops.slot_scan(kind, bank, row, delta, dep, weak, tables, costs,
+                         p)
+
+
+def _execute_entry_point(tasks, serial) -> None:
+    """Execute for the library entry points: a single failed task
+    re-raises its own exception (a bank or dep violation keeps its type
+    and message); only a genuine multi-failure raises the executor's
+    aggregate :class:`~repro_torch.core.executor.ExecutionError`.
+    ``Campaign.run`` goes through :func:`executor.execute` directly and
+    sees the failure records."""
+    fails = executor.execute(tasks, serial=serial, raise_on_error=False)
+    if fails:
+        if len(fails) == 1:
+            raise fails[0].error
+        raise executor.ExecutionError(fails)
+
+
+def _run_grouped(traces: Sequence[Trace], sys: SystemConfig,
+                 mode: Union[str, Sequence[str]], blooms,
+                 serial: Optional[bool] = None, policies=None,
+                 policy_costs=None, device=None) -> List[dict]:
+    """Plan into group tasks, then execute them: overlapped across the
+    executor's workers (each on its own CUDA stream) when more than one
+    group is present, or in order on the caller's thread under
+    ``serial=True``. Equal either way."""
+    traces = list(traces)
+    results: List[Optional[dict]] = [None] * len(traces)
+    tasks = prepare_tasks(traces, sys, mode, blooms, results,
+                          policies=policies, policy_costs=policy_costs,
+                          device=device)
+    _execute_entry_point(tasks, serial)
+    return results
 
 
 def run_many(traces: Sequence[Trace], sys: SystemConfig,
              mode: Union[str, Sequence[str]] = "ts", blooms=None,
-             policies=None, policy_costs=None, device=None) -> List[dict]:
+             policies=None, policy_costs=None, device=None,
+             serial: Optional[bool] = None) -> List[dict]:
     """Evaluate many traces under one ``SystemConfig`` in batched groups.
 
     ``mode`` is 'ts' | 'nots' | 'reference' or one per trace. ``blooms``
@@ -395,30 +493,20 @@ def run_many(traces: Sequence[Trace], sys: SystemConfig,
     ``policies`` / ``policy_costs`` give one program (and its
     ``smc_cycles_per_decision``, default ``sys``'s) per trace row.
     With a fault model (``sys.faults``) each result gains the fault
-    fields and ``bit_error_rate``. Returns one result dict per trace, in
-    input order."""
-    dev = resolve_device(device)
-    traces = list(traces)
-    n = len(traces)
-    modes = _check_modes([mode] * n if isinstance(mode, str) else mode, n)
-    blooms = _normalize_blooms(blooms, n)
-    pol = _normalize_policies(policies, policy_costs, sys, n)
-    groups: dict = {}
-    for i, tr in enumerate(traces):
-        lb = None if pol is None else smcprog.table_bucket(pol[0][i].n_ops)
-        groups.setdefault(
-            (_bucket(tr.n), _norm_mode(modes[i]), lb), []).append(i)
-    results: List[Optional[dict]] = [None] * n
-    for (bucket, gmode, lb), idxs in groups.items():
-        _run_group(traces, idxs, bucket, gmode, lb, sys, modes, blooms, pol,
-                   dev, results)
-    return results
+    fields and ``bit_error_rate``. The groups run overlapped across the
+    ``core.executor`` workers, each on its own CUDA stream;
+    ``serial=True`` runs them in order on the caller's thread (equal
+    results). Returns one result dict per trace, in input order."""
+    return _run_grouped(traces, sys, mode, blooms, serial=serial,
+                        policies=policies, policy_costs=policy_costs,
+                        device=device)
 
 
 def run_policies(trace: Trace, sys: SystemConfig,
                  programs: Sequence[smcprog.PolicyProgram],
                  mode: str = "ts", bloom: Optional[tuple] = None,
-                 derive_cost: bool = True, device=None) -> List[dict]:
+                 derive_cost: bool = True, device=None,
+                 serial: Optional[bool] = None) -> List[dict]:
     """One trace under many programs, one program per batch row.
     ``derive_cost`` charges each program ``prog.smc_cycles()`` (the
     ``sys.with_policy`` semantics), else ``sys``'s cost."""
@@ -426,7 +514,8 @@ def run_policies(trace: Trace, sys: SystemConfig,
     costs = ([p.smc_cycles() for p in programs] if derive_cost
              else [sys.smc_cycles_per_decision] * len(programs))
     return run_many([trace] * len(programs), sys, mode=mode, blooms=bloom,
-                    policies=programs, policy_costs=costs, device=device)
+                    policies=programs, policy_costs=costs, device=device,
+                    serial=serial)
 
 
 def run(trace: Trace, sys: SystemConfig, mode: str = "ts",
@@ -664,60 +753,118 @@ def _check_stream_args(sys: SystemConfig, chunk, dep_max: int,
             f"collect must be 'full' or 'aggregate', got {collect!r}")
 
 
-class _Clock:
-    """Host seconds of a stream's window parts, summed by part, when
-    ``timings`` is a dict (else a no-op). Each part ends with a device
-    sync, so that the device work it queued counts in it."""
+_TIMINGS_LOCK = threading.Lock()   # stream tasks merge their timings
 
-    def __init__(self, timings: Optional[dict], device):
-        self.t = timings
-        self.sync = (timings is not None and device.type == "cuda")
+
+class _Clock:
+    """Host seconds of a stream task's window parts on its consuming
+    thread, summed by part, when ``on`` (else a no-op). Each part ends
+    with a sync of the current stream, never of the whole device (other
+    workers' streams run on), so that the device work it queued counts in
+    it."""
+
+    def __init__(self, on: bool, device):
+        self.on = on
+        self.sync = on and device.type == "cuda"
+        self.device = device
+        self.parts: dict = {}
         self.t0 = time.perf_counter()
 
     def lap(self, part: str) -> None:
-        if self.t is None:
+        if not self.on:
             return
         if self.sync:
-            torch.cuda.synchronize()
+            torch.cuda.current_stream(self.device).synchronize()
         now = time.perf_counter()
-        self.t[part] = self.t.get(part, 0.0) + (now - self.t0)
+        self.parts[part] = self.parts.get(part, 0.0) + (now - self.t0)
         self.t0 = now
 
 
-def _run_stream_group(streams, idxs, gmode, lb, sys, modes, blooms, pol,
-                      chunk: int, dep_max: int, collect: str, device,
-                      results, timings) -> None:
-    """Run one (mode, table-bucket) group's streams in lockstep windows
-    on the caller's thread."""
+@dataclasses.dataclass
+class _Carry:
+    """A stream task's state from window to window: the window carry, the
+    group's launch inputs (Bloom words, tables, costs, scan parameters),
+    whether the next window is the first (its virtual halo is probed
+    too) and the task's clock."""
+    ss: StreamState
+    launch: tuple
+    clock: _Clock
+    first: bool = True
+
+
+def prepare_stream_tasks(streams: Sequence, sys: SystemConfig,
+                         mode: Union[str, Sequence[str]], blooms,
+                         results: List[Optional[dict]],
+                         chunk: int = DEFAULT_STREAM_CHUNK,
+                         dep_max: int = DEFAULT_STREAM_DEP,
+                         collect: str = "full", policies=None,
+                         policy_costs=None, device=None,
+                         timings: Optional[dict] = None
+                         ) -> List[executor.StreamTask]:
+    """Plan a :func:`run_stream_many` call into
+    :class:`~repro_torch.core.executor.StreamTask`s without running them:
+    grouping by (normalized mode, policy-table bucket), the argument
+    checks and the kernel library's build on the caller's thread, and
+    closures that assemble windows (the chunkers' next blocks,
+    ``np.stack``, the bank check, a pinned copy), stage and scan each
+    window (upload, shift, probe, the scan's window entry), consume each
+    window's retired block and finalize per-stream records into disjoint
+    ``results`` slots. ``timings``, a dict, gathers the host seconds of
+    the parts: generate, stage, probe, scan and copy."""
+    dev = resolve_device(device)
+    streams = list(streams)
+    n = len(streams)
+    modes = _check_modes([mode] * n if isinstance(mode, str) else mode, n)
+    blooms = _normalize_blooms(blooms, n)
+    pol = _normalize_policies(policies, policy_costs, sys, n)
+    _check_stream_args(sys, chunk, dep_max, collect)
+    chunk = int(chunk)
     geo = sys.geometry
     H = stream_halo(sys, dep_max)
     L = chunk + H
-    B = len(idxs)
-    bf = _group_blooms(blooms, idxs, B, device)
-    tables, costs, lb, para = _group_tables(sys, idxs, lb, pol, B, device)
-    p = _scan_params(sys, gmode, B, L, stream_slot_budget(chunk, sys), lb,
-                     bf is not None, para)
-    chunkers = [_Chunker(streams[i], chunk, dep_max) for i in idxs]
-    accs = [_StreamAccum(collect, H) for _ in idxs]
-    ss = StreamState.init(chunk, H, sys, B, bf is not None, device)
-    clock = _Clock(timings, device)
-    first = True
-    while True:
-        blocks = [c.next_block() for c in chunkers]
-        final = all(c.done for c in chunkers)
-        stacked = [np.stack([b[f] for b in blocks]) for f in range(5)]
-        clock.lap("generate")
-        if stacked[1].min() < 0 or stacked[1].max() >= geo.n_banks:
-            raise ValueError(f"trace banks must lie in [0, {geo.n_banks})")
-        fresh = {f: torch.from_numpy(a).to(device)
-                 for f, a in zip(TRACE_FIELDS, stacked)}
-        ss = shift_window(ss, fresh, chunk)
+    SL = stream_slot_budget(chunk, sys)
+    groups: dict = {}
+    for i in range(n):
+        lb = None if pol is None else smcprog.table_bucket(pol[0][i].n_ops)
+        groups.setdefault((_norm_mode(modes[i]), lb), []).append(i)
+    if groups and dev.type == "cuda":
+        ops.library()           # build once, before any worker starts
+
+    def windows(ctx):
+        # the window whose assembly exhausts every chunker is the final
+        # one: it ships with the freeze lifted and drains the whole tail
+        # within its budget (an all-empty group gets one all-NOP window)
+        chunkers = ctx["chunkers"]
+        k = 0
+        while True:
+            blocks = [c.next_block() for c in chunkers]
+            final = all(c.done for c in chunkers)
+            stacked = [np.stack([b[f] for b in blocks]) for f in range(5)]
+            if stacked[1].min() < 0 or stacked[1].max() >= geo.n_banks:
+                raise ValueError(
+                    f"trace banks must lie in [0, {geo.n_banks})")
+            if final:   # written before consume() sees the window
+                ctx["final_idx"] = k
+            yield tuple(_pinned(a, dev) for a in stacked) + (final,)
+            if final:
+                return
+            k += 1
+
+    def fn(carry: _Carry, kind, bank, row, delta, dep, final):
+        clock = carry.clock
+        clock.lap("generate")   # the window's assembly, just before
+        bf, tables, costs, p = carry.launch
+        fresh = {f: a.to(dev, non_blocking=True)
+                 for f, a in zip(TRACE_FIELDS, (kind, bank, row, delta,
+                                                dep))}
+        ss = shift_window(carry.ss, fresh, chunk)
+        carry.ss = None     # the old window's arrays free before the scan
         clock.lap("stage")
         if bf is not None:
             # the first window probes its virtual halo too (key 0, which
             # the reference probes if a free lane wins); later ones only
             # their fresh chunk, and the halo's flags shift with it
-            if first:
+            if carry.first:
                 ss.weak = _probe(bf, ss.bank, ss.row, geo.n_rows)
             else:
                 ss.weak = torch.cat([ss.weak[:, chunk:], _probe(
@@ -727,41 +874,76 @@ def _run_stream_group(streams, idxs, gmode, lb, sys, modes, blooms, pol,
                                       ss.delta, ss.dep, ss.weak, tables,
                                       costs, p, final)
         clock.lap("scan")
+        carry.ss, carry.first = ss, False
         # interior windows retire exactly [0, chunk); the final one keeps
         # its whole [0, L) carry (the tail: that is the flush)
         keep = L if final else chunk
-        out = torch.stack([ss.kind[:, :keep], ss.emu.t_issue[:, :keep],
-                           ss.emu.t_resp[:, :keep]]).cpu().numpy()
-        ptr = ss.emu.ptr.cpu().numpy()
-        for j, acc in enumerate(accs):
-            acc.feed(*out[:, j])
-        clock.lap("copy")
-        if final:
-            break
-        if (ptr <= L - FRONTIER_UPTO).any():
+        return carry, (torch.stack([ss.kind[:, :keep],
+                                    ss.emu.t_issue[:, :keep],
+                                    ss.emu.t_resp[:, :keep]]), ss.emu.ptr)
+
+    def consume(out, ctx):
+        blk, ptr = out
+        final = ctx["final_idx"] == ctx["fed"]
+        ctx["fed"] += 1
+        for j, acc in enumerate(ctx["accs"]):
+            acc.feed(*blk[:, j])
+        ctx["clock"].lap("copy")
+        if not final and (ptr <= L - FRONTIER_UPTO).any():
             raise RuntimeError(
                 f"streaming invariant violated: issue frontier fell "
                 f"behind the window (ptr={ptr.tolist()}, window={L}, "
-                f"slots={p.slots}) — slot budget too small")
-        first = False
+                f"slots={SL}) — slot budget too small")
 
-    e = ss.emu
-    hits, served, dram_now, smc = (
-        v.cpu().numpy() for v in (e.hits, e.served_n, e.dram_now,
-                                  e.smc_fpga_cycles))
-    # the fault carry rides the state through every window untouched by
-    # the shift: the final window's state is the whole stream's record
-    fhost = ({k: v.cpu().numpy() for k, v in e.faults.items()}
-             if sys.faults is not None else None)
-    for j, i in enumerate(idxs):
-        results[i] = accs[j].result(
-            chunkers[j].n, int(hits[j]), int(served[j]), int(dram_now[j]),
-            int(smc[j]), sys, modes[i])
-        if fhost is not None:
-            frow = {kk: v[j] for kk, v in fhost.items()}
-            results[i].update(fault_result_fields(frow))
-            results[i]["bit_error_rate"] = \
-                int(frow["vptr"]) / max(int(served[j]), 1)
+    tasks: List[executor.StreamTask] = []
+    for (gmode, lb), idxs in groups.items():
+        B = len(idxs)
+
+        def pack(idxs=idxs, gmode=gmode, lb=lb, B=B):
+            bf = _group_blooms(blooms, idxs, B, dev)
+            tables, costs, tlb, para = _group_tables(sys, idxs, lb, pol, B,
+                                                     dev)
+            p = _scan_params(sys, gmode, B, L, SL, tlb, bf is not None, para)
+            clock = _Clock(timings is not None, dev)
+            ctx = {"chunkers": [_Chunker(streams[i], chunk, dep_max)
+                                for i in idxs],
+                   "accs": [_StreamAccum(collect, H) for _ in idxs],
+                   # index of the freeze-lifted final window, written by
+                   # windows() before that window is queued
+                   "final_idx": None, "fed": 0, "clock": clock}
+            ss = StreamState.init(chunk, H, sys, B, bf is not None, dev)
+            return _Carry(ss, (bf, tables, costs, p), clock), ctx
+
+        def finalize(carry: _Carry, ctx, idxs=idxs):
+            e = carry.ss.emu
+            hits, served, dram_now, smc = (
+                v.cpu().numpy() for v in (e.hits, e.served_n, e.dram_now,
+                                          e.smc_fpga_cycles))
+            # the fault carry rides the state through every window
+            # untouched by the shift: the final window's state is the
+            # whole stream's record
+            fhost = ({k: v.cpu().numpy() for k, v in e.faults.items()}
+                     if sys.faults is not None else None)
+            for j, i in enumerate(idxs):
+                results[i] = ctx["accs"][j].result(
+                    ctx["chunkers"][j].n, int(hits[j]), int(served[j]),
+                    int(dram_now[j]), int(smc[j]), sys, modes[i])
+                if fhost is not None:
+                    frow = {kk: v[j] for kk, v in fhost.items()}
+                    results[i].update(fault_result_fields(frow))
+                    results[i]["bit_error_rate"] = \
+                        int(frow["vptr"]) / max(int(served[j]), 1)
+            if timings is not None:
+                with _TIMINGS_LOCK:
+                    for part, sec in ctx["clock"].parts.items():
+                        timings[part] = timings.get(part, 0.0) + sec
+
+        ptag = "" if lb is None else f":pol{lb}"
+        tasks.append(executor.StreamTask(
+            fn=fn, pack=pack, windows=windows, consume=consume,
+            finalize=finalize, label=f"stream:c{chunk}x{B}:{gmode}{ptag}",
+            cost=SL * B, device=dev))
+    return tasks
 
 
 def run_stream_many(streams: Sequence, sys: SystemConfig,
@@ -769,42 +951,39 @@ def run_stream_many(streams: Sequence, sys: SystemConfig,
                     chunk: int = DEFAULT_STREAM_CHUNK,
                     dep_max: int = DEFAULT_STREAM_DEP,
                     collect: str = "full", policies=None, policy_costs=None,
-                    device=None, timings: Optional[dict] = None
-                    ) -> List[dict]:
+                    device=None, timings: Optional[dict] = None,
+                    serial: Optional[bool] = None) -> List[dict]:
     """Evaluate many unbounded traces under one ``SystemConfig`` in
     lockstep constant-memory windows.
 
     Each stream is a :class:`Trace`, an iterable of Trace windows, or a
     zero-arg callable returning one (a generator factory); its length
     need not be known. Streams group by (normalized mode, policy-table
-    bucket); each group runs its windows serially, one launch of the slot
-    scan's window entry per window (plus one ``bloom_probe`` launch with a
-    filter), and exhausted streams idle on NOP windows until the group
-    drains. Device memory is O(batch * (chunk + halo)); host memory is
-    O(chunk) per stream with ``collect='aggregate'`` or O(length) with
-    ``collect='full'`` (which adds exact per-request ``t_resp`` /
-    ``t_issue``). Results equal single-shot :func:`run_many` on every
-    field for every chunk >= the halo. ``dep_max`` bounds the admissible
-    ``dep`` lookbacks (it sizes the halo). With a fault model each result
-    gains the fault fields and ``bit_error_rate``. ``timings``, a dict,
-    collects the host seconds of the windows' parts (generate, stage,
-    probe, scan, copy), each closed by a device sync."""
-    dev = resolve_device(device)
+    bucket); each group is one task of the ``core.executor``: its windows
+    run in order, one launch of the slot scan's window entry per window
+    (plus one ``bloom_probe`` launch with a filter), the next window
+    assembled while the current one's scan runs and each window's retired
+    block copied back one window behind; exhausted streams idle on NOP
+    windows until the group drains. Groups run overlapped across the
+    executor's workers, each on its own CUDA stream, or in order on the
+    caller's thread under ``serial=True``. Device memory is
+    O(batch * (chunk + halo)); host memory is O(chunk) per stream with
+    ``collect='aggregate'`` or O(length) with ``collect='full'`` (which
+    adds exact per-request ``t_resp`` / ``t_issue``). Results equal
+    single-shot :func:`run_many` on every field for every chunk >= the
+    halo. ``dep_max`` bounds the admissible ``dep`` lookbacks (it sizes
+    the halo). With a fault model each result gains the fault fields and
+    ``bit_error_rate``. ``timings``, a dict, collects the host seconds of
+    the windows' parts (generate, stage, probe, scan and copy, each closed
+    by a sync of its stream, which gives up the overlap)."""
     streams = list(streams)
-    n = len(streams)
-    modes = _check_modes([mode] * n if isinstance(mode, str) else mode, n)
-    blooms = _normalize_blooms(blooms, n)
-    pol = _normalize_policies(policies, policy_costs, sys, n)
-    _check_stream_args(sys, chunk, dep_max, collect)
-    groups: dict = {}
-    for i in range(n):
-        lb = None if pol is None else smcprog.table_bucket(pol[0][i].n_ops)
-        groups.setdefault((_norm_mode(modes[i]), lb), []).append(i)
-    results: List[Optional[dict]] = [None] * n
-    for (gmode, lb), idxs in groups.items():
-        _run_stream_group(streams, idxs, gmode, lb, sys, modes, blooms, pol,
-                          int(chunk), dep_max, collect, dev, results,
-                          timings)
+    results: List[Optional[dict]] = [None] * len(streams)
+    tasks = prepare_stream_tasks(streams, sys, mode, blooms, results,
+                                 chunk=chunk, dep_max=dep_max,
+                                 collect=collect, policies=policies,
+                                 policy_costs=policy_costs, device=device,
+                                 timings=timings)
+    _execute_entry_point(tasks, serial)
     return results
 
 
@@ -812,8 +991,9 @@ def run_stream(stream, sys: SystemConfig, mode: str = "ts",
                bloom: Optional[tuple] = None,
                chunk: int = DEFAULT_STREAM_CHUNK,
                dep_max: int = DEFAULT_STREAM_DEP,
-               collect: str = "full", device=None) -> dict:
+               collect: str = "full", device=None,
+               serial: Optional[bool] = None) -> dict:
     """Single-stream wrapper over :func:`run_stream_many` (see there)."""
     return run_stream_many([stream], sys, mode=mode, blooms=bloom,
                            chunk=chunk, dep_max=dep_max, collect=collect,
-                           device=device)[0]
+                           device=device, serial=serial)[0]

@@ -2,7 +2,9 @@
 
 ``RowClone`` (in-DRAM bulk copy / initialization, with profiling-driven
 CPU fallback), ``TRCDReduction`` (characterize weak rows, key a Bloom
-filter with them, serve every other row at reduced tRCD) and
+filter with them, serve every other row at reduced tRCD),
+``SchedulingPolicyStudy`` (software-defined scheduler programs across
+workloads, with length-derived SMC costs) and
 ``RowHammerMitigationStudy`` (mitigation programs against the fault
 model's flips). Each evaluates through one
 :class:`~repro_torch.core.campaign.Campaign`: one batched engine call per
@@ -146,6 +148,71 @@ class TRCDReduction:
         } for i in range(len(trs))]
 
 
+class SchedulingPolicyStudy:
+    """Scheduling policies as software: a grid of
+    :class:`~repro_torch.core.smcprog.PolicyProgram` schedulers (default:
+    every built-in) evaluated over workloads, every (trace x policy x
+    mode) point through one :class:`Campaign`.
+
+    ``derive_cost=True`` (default) charges each program its length-derived
+    SMC decision cost (``with_policy``), so ``nots`` records show how a
+    longer program slows the free-running system while ``ts`` records
+    stay invariant to it; ``derive_cost=False`` keeps ``sys``'s cost and
+    isolates scheduling quality."""
+
+    def __init__(self, sys: SystemConfig,
+                 programs: Optional[Sequence[PolicyProgram]] = None,
+                 baseline: str = "frfcfs"):
+        self.sys = sys
+        self.programs = list(programs) if programs is not None \
+            else list(smcprog.builtin_programs().values())
+        if not self.programs:
+            raise ValueError("need at least one policy program")
+        names = [p.name for p in self.programs]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(
+                f"program names must be unique (results key on them), "
+                f"got duplicates {dupes}")
+        self.baseline = baseline
+
+    def evaluate_traces(self, trs: Sequence, mode: str = "ts",
+                        derive_cost: bool = True, policy_axis: bool = True,
+                        device=None) -> List[Dict]:
+        """One dict per trace, in input order: ``{policy_name:
+        {exec_cycles, row_hits, smc_cycles, speedup_vs_baseline}}``.
+        ``policy_axis=True`` carries the programs as runtime tables (one
+        group per trace-length bucket), ``False`` attaches each to the
+        config (one group per program); equal either way. ``device`` is
+        the engine's (None = CUDA)."""
+        c = Campaign()
+        for i, tr in enumerate(trs):
+            c.add_policy_grid(tr, self.sys, self.programs, mode=mode,
+                              derive_cost=derive_cost,
+                              policy_axis=policy_axis, i=i)
+        recs = {(r["i"], r["policy"]): r for r in c.run(device=device)}
+        cost = {p.name: p.smc_cycles() if derive_cost
+                else self.sys.smc_cycles_per_decision for p in self.programs}
+        out: List[Dict] = []
+        for i in range(len(trs)):
+            d = {}
+            base = None
+            if any(p.name == self.baseline for p in self.programs):
+                base = int(recs[(i, self.baseline)]["exec_cycles"])
+            for p in self.programs:
+                r = recs[(i, p.name)]
+                e = int(r["exec_cycles"])
+                d[p.name] = {
+                    "exec_cycles": e,
+                    "row_hits": int(r["row_hits"]),
+                    "smc_cycles": cost[p.name],
+                    "speedup_vs_baseline":
+                        (base / max(e, 1)) if base is not None else 1.0,
+                }
+            out.append(d)
+        return out
+
+
 class RowHammerMitigationStudy:
     """RowHammer mitigations as memory-controller programs, judged end to
     end under the fault model: each (program x hammer intensity) point
@@ -187,13 +254,8 @@ class RowHammerMitigationStudy:
         campaign. ``policy_axis=True`` carries each program as a runtime
         table (one group per table bucket), ``False`` attaches it to the
         config (one group per program). ``device`` is the engine's (None =
-        CUDA); the campaign takes no other run option yet (checkpointing
-        is ROADMAP Queue A 9)."""
-        if run_kw:
-            raise NotImplementedError(
-                f"Campaign.run options {sorted(run_kw)}: the port's "
-                f"campaign takes only device= (checkpoint and on_error are "
-                f"ROADMAP Queue A 9)")
+        CUDA); ``run_kw`` passes through to :meth:`Campaign.run`
+        (``checkpoint=...`` resumes a killed sweep)."""
         c = Campaign()
         sysf = self.sys.with_faults(self.fault_model)
         for i, inten in enumerate(intensities):
@@ -214,7 +276,8 @@ class RowHammerMitigationStudy:
                     else dataclasses.replace(self.sys, policy=prog)
                 c.add(tr, sysc.with_faults(self.fault_model), mode,
                       mitigation=name, i=i)
-        recs = {(r["i"], r["mitigation"]): r for r in c.run(device=device)}
+        recs = {(r["i"], r["mitigation"]): r
+                for r in c.run(device=device, **run_kw)}
         out: List[dict] = []
         for i, inten in enumerate(intensities):
             base = int(recs[(i, self.baseline)]["exec_cycles"])

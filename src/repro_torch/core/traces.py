@@ -7,6 +7,10 @@ Two families, mirroring the paper's evaluation:
 * PolyBench-like kernels (Sec. 6/8) — synthetic address streams with the
   suite's spread of memory intensities, filtered through the LLC model.
 
+And two traces of the LM serving side: one decode step's DRAM traffic
+(:func:`lm_decode_trace`) and a KV-cache page fork as a bulk copy
+(:func:`kv_fork_trace`).
+
 Plus the streaming front door: :func:`load_trace_file` parses
 ramulator-style / MemTraceProbe-style text traces (plain or ``.gz``)
 into the address stream :func:`dram_trace_from_stream` consumes;
@@ -490,3 +494,52 @@ def polybench_trace(kern: Kernel, geo: Geometry, max_accesses=60000, seed=0):
     tr = dram_trace_from_stream(da, dw, geo, delta=kern.compute_per_access,
                                 window_dep=kern.dep)
     return tr, len(addrs)
+
+
+# ---------------- LM-step traces ----------------
+
+def lm_decode_trace(cfg, seq_len: int, geo: Geometry, max_requests=20000,
+                    hbm_like_delta=2):
+    """DRAM traffic of one decode step: stream the active parameters, then
+    the KV reads. Weight rows are touched in order across the banks, KV
+    reads scatter over the upper half of the rows. The parameters are
+    counted from the port's model definitions
+    (``models.model_zoo.build(cfg).n_params()``): a family whose layers
+    the port does not build yet raises ``NotImplementedError`` there."""
+    from repro_torch.models import model_zoo
+    model = model_zoo.build(cfg, s_max=max(seq_len, 16))
+    n_params = model.n_params()
+    if cfg.moe:
+        act_frac = (cfg.moe.top_k / cfg.moe.n_experts)
+        n_active = int(n_params * (0.25 + 0.75 * act_frac))
+    else:
+        n_active = n_params
+    weight_rows = min(n_active * 2 // geo.row_bytes, max_requests * 3 // 4)
+    kv_lines = 0
+    if not cfg.attn_free:
+        attn_layers = max(cfg.n_layers // cfg.attn_every, 1)
+        kv_bytes = (attn_layers * 2 * cfg.n_kv_heads *
+                    cfg.resolved_head_dim * seq_len * 2)
+        kv_lines = min(kv_bytes // geo.line_bytes, max_requests // 4)
+    kinds, banks, rows, deltas = [], [], [], []
+    for i in range(int(weight_rows)):
+        kinds.append(READ)
+        banks.append(i % geo.n_banks)
+        rows.append((i // geo.n_banks) % geo.n_rows)
+        deltas.append(hbm_like_delta)
+    rng = np.random.RandomState(3)
+    for i in range(int(kv_lines)):
+        kinds.append(READ)
+        banks.append(int(rng.randint(geo.n_banks)))
+        rows.append(int(rng.randint(geo.n_rows // 2, geo.n_rows)))
+        deltas.append(hbm_like_delta)
+    return Trace.of(kinds, banks, rows, deltas)
+
+
+def kv_fork_trace(n_pages: int, page_bytes: int, geo: Geometry, mode: str,
+                  device=None):
+    """A KV-cache page fork (prefix sharing, a beam split) as a bulk copy:
+    the serving side's RowClone use case. ``device`` is the DRAM device
+    model (``core.profiling.DeviceModel``), as in :func:`copy_workload`."""
+    return copy_workload(n_pages * page_bytes, geo, mode=mode, device=device,
+                         setting="noflush", alloc_base_row=16384)

@@ -1624,6 +1624,20 @@ extern "C" long long slot_scan_wide_scratch_ints(const int* params) {
   return lay.in_smem ? 0 : static_cast<long long>(p.batch) * lay.total;
 }
 
+// A kernel opted, once per process, into all the dynamic shared memory its
+// static shared memory leaves. The attribute is process-wide: set once, it
+// holds for every group's size, so launches on concurrent streams never
+// change it under each other.
+template <typename Kernel>
+static cudaError_t opt_in_max_smem(Kernel kernel) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(REPRO_MAX_DYN_SMEM - a.sharedSizeBytes));
+}
+
 extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
                                      const void* bank, const void* row,
                                      const void* delta, const void* dep,
@@ -1643,11 +1657,9 @@ extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   if (lay.in_smem) {
+    static const cudaError_t attr = opt_in_max_smem(slot_scan_wide_kernel);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
     smem = static_cast<size_t>(lay.total) * sizeof(int);
-    const cudaError_t e = cudaFuncSetAttribute(
-        slot_scan_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
   }
   slot_scan_wide_kernel<<<p.batch, 32, smem,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -1659,18 +1671,6 @@ extern "C" int slot_scan_wide_launch(const int* params, const void* kind,
       static_cast<int*>(stats), static_cast<int*>(fstats),
       static_cast<int*>(vlog), static_cast<int*>(scratch));
   return static_cast<int>(cudaGetLastError());
-}
-
-// A policy kernel of the fast instantiation opted, once per process, into
-// all the dynamic shared memory its static shared memory leaves.
-template <typename Kernel>
-static cudaError_t opt_in_policy_smem(Kernel kernel) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(REPRO_MAX_DYN_SMEM - a.sharedSizeBytes));
 }
 
 // The fast instantiation: queue <= SCAN_MAX_Q, banks <= SCAN_MAX_BANKS,
@@ -1696,9 +1696,9 @@ extern "C" int slot_scan_launch(const int* params, const void* kind,
     if (p.table_len > REPRO_VM_MAX_L)
       return static_cast<int>(cudaErrorInvalidValue);
     static const cudaError_t attr_plain =
-        opt_in_policy_smem(slot_scan_kernel<true>);
+        opt_in_max_smem(slot_scan_kernel<true>);
     static const cudaError_t attr_faults =
-        opt_in_policy_smem(slot_scan_faults_kernel<true>);
+        opt_in_max_smem(slot_scan_faults_kernel<true>);
     const cudaError_t attr = f.faults ? attr_faults : attr_plain;
     if (attr != cudaSuccess) return static_cast<int>(attr);
     smem = static_cast<size_t>(
@@ -1755,11 +1755,10 @@ extern "C" int slot_scan_window_launch(const int* params, int final,
       return static_cast<int>(cudaErrorInvalidValue);
     size_t smem = 0;
     if (lay.in_smem) {
+      static const cudaError_t attr =
+          opt_in_max_smem(slot_scan_window_wide_kernel);
+      if (attr != cudaSuccess) return static_cast<int>(attr);
       smem = static_cast<size_t>(lay.total) * sizeof(int);
-      const cudaError_t e = cudaFuncSetAttribute(
-          slot_scan_window_wide_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
     }
     slot_scan_window_wide_kernel<<<p.batch, 32, smem, st>>>(
         p, f, lay, w, i(0), i(1), i(2), i(3), i(4), wk, i(6), i(7), o(8),
@@ -1771,9 +1770,9 @@ extern "C" int slot_scan_window_launch(const int* params, int final,
     if (p.table_len > REPRO_VM_MAX_L)
       return static_cast<int>(cudaErrorInvalidValue);
     static const cudaError_t attr_plain =
-        opt_in_policy_smem(slot_scan_window_kernel<true, false>);
+        opt_in_max_smem(slot_scan_window_kernel<true, false>);
     static const cudaError_t attr_faults =
-        opt_in_policy_smem(slot_scan_window_kernel<true, true>);
+        opt_in_max_smem(slot_scan_window_kernel<true, true>);
     const cudaError_t attr = f.faults ? attr_faults : attr_plain;
     if (attr != cudaSuccess) return static_cast<int>(attr);
     smem = static_cast<size_t>(

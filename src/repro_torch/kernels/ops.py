@@ -14,7 +14,9 @@ sources compile in parallel; the library is keyed by the sources'
 content, under ``build/repro_torch`` at the repository root. Each CUDA
 wrapper adds one to its launch counter (:func:`launches`) right after
 its kernel launched, and nowhere else; a kernel with more than one
-instantiation also counts which one ran (:func:`variants`).
+instantiation also counts which one ran (:func:`variants`). The counters
+are guarded by a lock: the campaign executor's workers launch from
+several threads at once.
 """
 from __future__ import annotations
 
@@ -51,26 +53,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_KV_KERNEL = 8192   # attn_apply sends longer key sequences to plain attention
 _LAUNCHES = {name: 0 for name in KERNELS}
 _VARIANTS: dict = {}
-_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()   # the counters; workers launch concurrently
+_LOCK = threading.Lock()         # the library's build and load
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
 
 
 def launches() -> dict:
     """Kernel launches counted since the last :func:`reset_launches`."""
-    return dict(_LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
 
 
 def variants() -> dict:
     """Launches by ``"kernel/instantiation"`` since the last
     :func:`reset_launches` (kernels with one instantiation are absent)."""
-    return dict(_VARIANTS)
+    with _COUNT_LOCK:
+        return dict(_VARIANTS)
 
 
 def reset_launches() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-    _VARIANTS.clear()
+    with _COUNT_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+        _VARIANTS.clear()
 
 
 def check_launch(name: str, err: int, variant: Optional[str] = None) -> None:
@@ -78,10 +84,11 @@ def check_launch(name: str, err: int, variant: Optional[str] = None) -> None:
     it, under ``variant`` too when the kernel has several."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _LAUNCHES[name] += 1
-    if variant is not None:
-        key = f"{name}/{variant}"
-        _VARIANTS[key] = _VARIANTS.get(key, 0) + 1
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
+        if variant is not None:
+            key = f"{name}/{variant}"
+            _VARIANTS[key] = _VARIANTS.get(key, 0) + 1
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.core import (emulator, faults, smcprog, techniques,
-                              timescale, traces)
+from repro_torch.core import (emulator, executor, faults, smcprog,
+                              techniques, timescale, traces)
 from repro_torch.core.bloom import BloomFilter, words_tensor
 from repro_torch.core.faults import FAULT_LOGS, FAULT_SCALARS, FaultModel
 from repro_torch.core.timescale import JETSON_NANO
@@ -680,6 +680,43 @@ def test_engine_runs_every_reference_shape_on_the_card(cuda_device, shape):
         for f in ("exec_cycles", "row_hits", "served", "dram_ticks",
                   "smc_fpga_cycles", "t_resp", "t_issue"):
             np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def engine_tasks(sys_, trace, progs, results, device=None):
+    """The groups of :func:`engine_run` as executor tasks, unlaunched."""
+    if progs is not None:
+        return emulator.prepare_tasks(
+            [trace] * len(progs), sys_, "nots", None, results,
+            policies=progs, policy_costs=[p.smc_cycles() for p in progs],
+            device=device)
+    return emulator.prepare_tasks([trace, trace], sys_, ["ts", "nots"],
+                                  None, results, device=device)
+
+
+@pytest.mark.cuda
+def test_overlapped_wide_groups_of_different_layouts(cuda_device):
+    """Wide groups whose shared-memory regions differ in size (queues,
+    banks, tables) overlapped on the executor's streams in one call:
+    each launch's dynamic shared memory holds whatever the others set,
+    and every group equals the plain engine."""
+    shapes = ["q65", "q1016", "banks128", "banks4096", "table512",
+              "table1024"]
+    results, tasks = {}, []
+    for shape in shapes:
+        sys_, trace, progs = engine_case(shape)
+        results[shape] = [None] * (len(progs) if progs else 2)
+        tasks += engine_tasks(sys_, trace, progs, results[shape])
+    ops.reset_launches()
+    assert executor.execute(tasks, serial=False) == []
+    torch.cuda.synchronize()
+    assert ops.launches()["slot_scan"] == len(tasks) > len(shapes)
+    for shape in shapes:
+        want = engine_run(*engine_case(shape), device="cpu")
+        for a, b in zip(results[shape], want):
+            for f in ("exec_cycles", "row_hits", "served", "dram_ticks",
+                      "smc_fpga_cycles", "t_resp", "t_issue"):
+                np.testing.assert_array_equal(a[f], b[f],
+                                              err_msg=f"{shape} {f}")
 
 
 # the grid and tolerances of tests/test_kernels.py: the kernel sums in

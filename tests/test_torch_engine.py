@@ -223,14 +223,15 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_unported_features_raise():
-    """Fault injection is ported (tests/test_torch_faults.py); the
-    campaign's checkpoint and error options (Queue A 9) are not."""
+    """Fault injection is ported (tests/test_torch_faults.py), and so are
+    the campaign's run options (tests/test_torch_executor.py): the study
+    passes them to ``Campaign.run``, which refuses a bad ``on_error``."""
     _, pt = pair(grid_trace(0, 20))
     psys = port_sys(JN)
     study = ptech.RowHammerMitigationStudy(
         psys, fault_model=PFault(seed=1, hammer_threshold=8))
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        study.evaluate(n_requests=20, device=CPU, checkpoint="ckpt")
+    with pytest.raises(ValueError, match="on_error"):
+        study.evaluate(n_requests=20, device=CPU, on_error="ignore")
     assert "flips" in pe.run(
         pt, psys.with_faults(PFault(seed=1, hammer_threshold=8)),
         device=CPU)

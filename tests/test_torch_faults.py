@@ -26,7 +26,7 @@ from repro_torch.core import emulator as pe, faults as pfaults
 from repro_torch.core import smcprog as psmc
 from repro_torch.core import techniques as ptech, threefry, traces as ptr
 from repro_torch.core.state import EmulatorState as PState
-from repro_torch.kernels import ref as pref
+from repro_torch.kernels import ops, ref as pref
 
 torch.set_num_threads(1)
 
@@ -298,17 +298,25 @@ def test_fault_free_results_have_no_fault_fields(jax_runs):
 
 
 @pytest.mark.parametrize("policy_axis", [True, False])
-def test_mitigation_study_matches_jax(jax_runs, policy_axis):
+def test_mitigation_study_matches_jax(jax_runs, policy_axis, tmp_path,
+                                     monkeypatch):
+    """The study equals JAX's; with ``checkpoint=`` (passed through to
+    ``Campaign.run``) a second evaluation loads every group, launching no
+    scan, and gives the same records."""
     study = ptech.RowHammerMitigationStudy(
         port_sys(JN), fault_model=pfaults.FaultModel(
             **dataclasses.asdict(FM)))
     got = study.evaluate(n_requests=96, policy_axis=policy_axis,
-                         device="cpu")
+                         device="cpu", checkpoint=str(tmp_path))
     assert got == jax_runs["study"][policy_axis]
     assert any(d[n]["mitigations"] > 0 for d in got for n in d
                if n != "intensity")
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        study.evaluate(n_requests=96, device="cpu", checkpoint="x")
+    scans, orig = [], ops.slot_scan
+    monkeypatch.setattr(ops, "slot_scan",
+                        lambda *a: scans.append(1) or orig(*a))
+    again = study.evaluate(n_requests=96, policy_axis=policy_axis,
+                           device="cpu", checkpoint=str(tmp_path))
+    assert again == got and scans == []
 
 
 def test_state_round_trip_with_fault_carry():

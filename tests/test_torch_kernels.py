@@ -275,10 +275,28 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert torch.equal(tf32_rna(kv), kv)
 
 
+@pytest.fixture
+def ieee_fp32_matmul():
+    """Pin the process-wide float32 matmul precision to IEEE for the TF32
+    arithmetic below, and restore it after. Under
+    ``torch.set_float32_matmul_precision("medium")``, or oneDNN's
+    ``torch.backends.mkldnn.matmul.fp32_precision = "bf16"``, the CPU's
+    float32 ``@`` runs in bf16 on a host with AMX-BF16, and the 3xTF32
+    products miss the 2e-5 tolerance on every case of the grid: any code
+    that ran earlier in the same process may have left either set."""
+    mkl = torch.backends.mkldnn.matmul
+    old, old_mkl = torch.get_float32_matmul_precision(), mkl.fp32_precision
+    torch.set_float32_matmul_precision("highest")
+    mkl.fp32_precision = "ieee"
+    yield
+    torch.set_float32_matmul_precision(old)
+    mkl.fp32_precision = old_mkl
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd", FLASH_GRID)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_3xtf32_meets_the_fp32_tolerance_and_1xtf32_does_not(
-        B, S, H, KV, hd, causal):
+        B, S, H, KV, hd, causal, ieee_fp32_matmul):
     """Why the kernel splits every product in three: on the reference grid
     the 3xTF32 products stay within the fp32 tolerance (2e-5) of the
     plain version, a single TF32 pass does not."""

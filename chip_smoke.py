@@ -81,6 +81,21 @@ Phases, one line each:
    search on the plain engine (a CPU worker process started with the
    script); ``SchedulingPolicyStudy`` over the twelve PolyBench traces and
    every built-in, ``policy_axis`` True and False equal;
+7e. the sweep service over phase 7d's grid, the plan cache cleared and the
+   launch counters reset just before it: three in-process clients
+   (weights 1, 1, 2) submit it interleaved behind a long coalescing
+   window, every record equal to the serial ``Campaign.run``, every group
+   one dispatch, points of several clients sharing dispatches, the plan
+   cache missing once a group and nothing on a second pass; timed runs at
+   the default 4 ms window (a thread a client) in turns with
+   ``Campaign.run`` overlapped: wall time, dispatches, points per
+   dispatch, coalescing ratio, latency percentiles; ``python -m
+   repro_torch.service --persistent-cache`` in a process of its own (its
+   library loaded before its first dispatch): the RowClone and policy
+   points over a socket, stats over the socket, a typed
+   ``QueueFullError``; a drain-close with a checkpoint directory, then a
+   new server on it and ``Campaign.run(checkpoint=...)``, neither
+   launching anything;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
@@ -126,6 +141,7 @@ import json
 import math
 import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -219,6 +235,15 @@ WINDOW_CASES = {
 # with the script), and its seed
 SEARCH_CUT, SEARCH_SEED = 2048, 0
 ROWCLONE_SIZES = (64 << 10, 1 << 20, 4 << 20)   # phases 5 and 7d
+# phase 7e: the sweep service over phase 7d's grid: three clients and their
+# weights; a coalescing window long enough for every submission to land
+# before the first flush (the coalescing and checkpoint checks; the timed
+# runs take the service's default of 4 ms); timed runs in turns with the
+# Campaign; the standalone server's per-client bound
+SERVICE_WEIGHTS = (1.0, 1.0, 2.0)
+SERVICE_LONG_WINDOW_S = 0.25
+SERVICE_TURNS = 2
+SERVICE_MAX_PENDING = 32
 VM_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)   # phase 3
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
@@ -1971,7 +1996,7 @@ def phase_executor(np, torch, ops, emu, campaign, techniques, policysearch,
     say(f"phase 7d SchedulingPolicyStudy: {len(trs)} traces x "
         f"{len(builtins)} built-ins, policy_axis True {axis_s:.2f} s == "
         f"False {staged_s:.2f} s")
-    return {
+    return grid, recs["serial"], {
         "groups": n_groups, "points": len(grid), "wall_s": walls,
         "median_wall_s": med, "launches": counts["serial"],
         "streams": {k: len(v) for k, v in streams.items()},
@@ -1983,6 +2008,286 @@ def phase_executor(np, torch, ops, emu, campaign, techniques, policysearch,
                    "cut_card_s": card_cut_s, "cut_plain_cpu_s": plain_cut_s,
                    "cut_wait_s": wait_s, "cut": card_cut},
         "study_s": {"policy_axis": axis_s, "staged": staged_s}}
+
+
+def service_pass(service, grid, server, threads):
+    """Phase 7d's grid through ``server`` from three clients (weights
+    ``SERVICE_WEIGHTS``), point j to client j % 3, submitted one point at a
+    time in grid order: from one thread each (``threads``) or interleaved
+    from this one. Returns the records in grid order and the wall seconds
+    from the first submission to the last record."""
+    import threading
+    clis = [service.SweepClient(server=server, name=f"c{k}", weight=w)
+            for k, w in enumerate(SERVICE_WEIGHTS)]
+    mine = [list(range(k, len(grid.points), len(clis)))
+            for k in range(len(clis))]
+    out = [None] * len(grid.points)
+    errs = []
+
+    def client(k):
+        try:
+            for i in mine[k]:
+                clis[k].submit_points([grid.points[i]])
+            for i, r in zip(mine[k], clis[k].collect(timeout=600)):
+                out[i] = r
+        except Exception as e:   # re-raised on the calling thread
+            errs.append(e)
+
+    t0 = time.perf_counter()
+    if threads:
+        ths = [threading.Thread(target=client, args=(k,))
+               for k in range(len(clis))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(600)
+    else:
+        for i, p in enumerate(grid.points):
+            clis[i % len(clis)].submit_points([p])
+        for k, cli in enumerate(clis):
+            for i, r in zip(mine[k], cli.collect(timeout=600)):
+                out[i] = r
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return out, wall
+
+
+def standalone_server(np, service, grid, serial, pick):
+    """``python -m repro_torch.service`` in a process of its own, started
+    with ``--persistent-cache``: its stats before the first submission
+    (the library loaded, nothing dispatched), the points ``pick`` over a
+    socket (equal to ``serial``), its stats after, and a typed
+    ``QueueFullError`` past ``--max-pending``. The process is stopped with
+    Ctrl-C (a drain) and killed if it does not exit."""
+    import select
+    import signal
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    err = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.service", "--port", "0",
+         "--max-pending", str(SERVICE_MAX_PENDING), "--persistent-cache"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline() if ready else ""
+        if "listening on" not in line:
+            err.seek(0)
+            check(False, f"phase 7e: the standalone server did not start: "
+                         f"{line!r} {err.read()[-2000:]}")
+        start_s = time.perf_counter() - t0
+        host, port = line.split("listening on ")[1].split()[0].rsplit(":", 1)
+        with service.SweepClient(address=(host, int(port)),
+                                 name="far") as cli:
+            before = cli.stats()
+            walls = []
+            for _ in range(2):   # the process's first dispatches, then warm
+                t0 = time.perf_counter()
+                cli.submit_points([grid.points[i] for i in pick])
+                got = cli.collect(timeout=600)
+                walls.append(time.perf_counter() - t0)
+            after = cli.stats()
+            try:
+                cli.submit_points([grid.points[pick[0]]]
+                                  * (SERVICE_MAX_PENDING + 1))
+                refused = None
+            except service.QueueFullError as e:
+                refused = e
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
+    same_records(np, got, [serial[i] for i in pick],
+                 "phase 7e standalone server")
+    pers = before["compile"]["persistent"]
+    check(before["dispatches"]["count"] == 0
+          and pers["hits"] + pers["misses"] == 1 and pers["dir"]
+          and before["device"].startswith("cuda"),
+          f"phase 7e: the standalone server before its first dispatch: "
+          f"{before['dispatches']} {pers} {before['device']}")
+    check(after["clients"]["far"]["completed"] == 2 * len(pick),
+          f"phase 7e: stats over the socket {after['clients']}")
+    check(refused is not None and refused.scope == "per-client"
+          and refused.bound == SERVICE_MAX_PENDING
+          and refused.requested == SERVICE_MAX_PENDING + 1,
+          f"phase 7e: no typed QueueFullError over the socket ({refused})")
+    check(code == 0, f"phase 7e: the standalone server exited {code}")
+    frames = {"submit_bytes": len(pickle.dumps(
+                  [grid.points[i] for i in pick],
+                  protocol=pickle.HIGHEST_PROTOCOL)),
+              "records_bytes": len(pickle.dumps(
+                  got, protocol=pickle.HIGHEST_PROTOCOL))}
+    return {"start_s": start_s, "wall_s": walls, "points": len(pick),
+            "frames": frames,
+            "persistent": pers, "dispatches": after["dispatches"],
+            "latency_ms": after["latency_ms"],
+            "refused": {"scope": refused.scope, "bound": refused.bound,
+                        "requested": refused.requested}}
+
+
+def phase_service(np, torch, ops, emu, service, grid, serial):
+    """Phase 7e, the sweep service over phase 7d's grid: (i) three
+    in-process clients (weights 1, 1, 2) submit the grid interleaved, with
+    a window long enough for every point to land first: every record
+    equals the serial ``Campaign.run``, every group is one dispatch shared
+    by more than one client, and the plan cache (cleared before) misses
+    once a group; then timed runs in turns with ``Campaign.run`` overlapped
+    (campaign, service, service, campaign), the service at its default
+    window with a thread a client: wall time, dispatches, points per
+    dispatch, coalescing ratio, latency percentiles; (ii) the same grid
+    again on the first server: the plan cache misses nothing; (iii)
+    ``python -m repro_torch.service`` in a process of its own: the
+    RowClone and policy points over a socket, stats over the socket, a
+    typed ``QueueFullError``; (iv) a drain-close with a checkpoint
+    directory: a new server on it answers with nothing launched, every
+    dispatch loaded, and so does ``Campaign.run(checkpoint=...)``; (v)
+    ``persistent_cache=True``: the standalone server's library was loaded
+    before its first dispatch, and an in-process server reports the
+    build."""
+    import shutil
+    import tempfile
+    n_groups = grid.n_groups()
+
+    # (i) coalescing and exactness, with the plan cache cleared before
+    emu.cache_clear()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    srv = service.SweepServer(coalesce_window_s=SERVICE_LONG_WINDOW_S)
+    try:
+        first, first_s = service_pass(service, grid, srv, threads=False)
+        torch.cuda.synchronize()
+        counts = ops.launches()
+        st1 = srv.stats()
+        # (ii) the same grid again on the warm server
+        second, second_s = service_pass(service, grid, srv, threads=False)
+        st2 = srv.stats()
+    finally:
+        srv.close()
+    same_records(np, first, serial, "phase 7e three clients")
+    same_records(np, second, serial, "phase 7e second pass")
+    for name in PATH_KERNELS:
+        check(counts[name] > 0, f"phase 7e: the service launched no {name} "
+                                f"({counts})")
+    check(counts["slot_scan"] == n_groups
+          and st1["dispatches"]["count"] == n_groups
+          and st1["coalesce_ratio"] > 1.0,
+          f"phase 7e: {st1['dispatches']} coalesce ratio "
+          f"{st1['coalesce_ratio']}, launches {counts}")
+    check(st1["compile"]["misses"] == n_groups
+          and st1["compile"]["hits"] == 0,
+          f"phase 7e: first pass plan cache {st1['compile']}")
+    second_cache = {k: st2["compile"][k] - st1["compile"][k]
+                    for k in ("hits", "misses")}
+    check(second_cache == {"hits": n_groups, "misses": 0},
+          f"phase 7e: second pass plan cache {second_cache}")
+
+    # timed: Campaign.run overlapped and the service, in turns
+    walls = {"campaign": [], "service": []}
+    runs = []
+    for how in ("campaign", "service", "service", "campaign") \
+            * SERVICE_TURNS:
+        torch.cuda.synchronize()
+        if how == "campaign":
+            t0 = time.perf_counter()
+            out = grid.run()
+            torch.cuda.synchronize()
+            walls[how].append(time.perf_counter() - t0)
+        else:
+            with service.SweepServer() as srv:
+                out, wall = service_pass(service, grid, srv, threads=True)
+                torch.cuda.synchronize()
+                st = srv.stats()
+            walls[how].append(wall)
+            runs.append({k: st[k] for k in (
+                "dispatches", "points_per_dispatch", "coalesce_ratio",
+                "latency_ms")})
+        same_records(np, out, serial, f"phase 7e timed {how}")
+
+    # (iii) and (v): the standalone server on a socket
+    pick = [i for i, p in enumerate(grid.points)
+            if "workload" in p.meta or p.meta.get("arm") == "policy"]
+    standalone = standalone_server(np, service, grid, serial, pick)
+
+    # (iv) checkpoint: drain-close, then a new server and a Campaign on it
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        srv = service.SweepServer(checkpoint=tmp,
+                                  coalesce_window_s=SERVICE_LONG_WINDOW_S)
+        cli = service.SweepClient(server=srv, name="a")
+        cli.submit_points(grid.points)
+        srv.close(drain=True)
+        drained = cli.collect(timeout=600)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with service.SweepServer(checkpoint=tmp) as srv:
+            cli = service.SweepClient(server=srv, name="b")
+            cli.submit_points(grid.points)
+            loaded = cli.collect(timeout=600)
+            st_ck = srv.stats()
+        load_s = time.perf_counter() - t0
+        resumed = grid.run(checkpoint=tmp)
+        ck_launches = ops.launches()
+        files = len([f for f in os.listdir(tmp) if f.startswith("group-")])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, recs in (("drained", drained), ("loaded", loaded),
+                       ("resumed", resumed)):
+        same_records(np, recs, serial, f"phase 7e checkpoint {name}")
+    check(files == n_groups and not any(ck_launches.values())
+          and st_ck["dispatches"]["loaded_from_checkpoint"]
+          == st_ck["dispatches"]["count"] == n_groups
+          and grid.last_run["loaded"] == n_groups,
+          f"phase 7e: checkpoint files {files}, launches {ck_launches}, "
+          f"{st_ck['dispatches']}, campaign {grid.last_run}")
+
+    # (v) in-process: persistent_cache=True reports the library's build
+    with service.SweepServer(persistent_cache=True) as srv:
+        pers = srv.stats()["compile"]["persistent"]
+    check(pers["hits"] + pers["misses"] == 1 and pers["dir"],
+          f"phase 7e: persistent_cache in-process {pers}")
+
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    last = runs[-1]
+    say(f"phase 7e service: phase 5's grid ({len(grid.points)} points, "
+        f"{n_groups} groups) from 3 in-process clients (weights "
+        f"{list(SERVICE_WEIGHTS)}) == serial Campaign.run on every field; "
+        f"{SERVICE_LONG_WINDOW_S * 1e3:.0f} ms window: {n_groups} "
+        f"dispatches, coalesce ratio {st1['coalesce_ratio']:.2f}, launches "
+        f"{counts}, {first_s:.4f} s; plan cache first pass "
+        f"{st1['compile']['misses']} misses, second pass {second_cache}")
+    say(f"phase 7e timed in turns (4 ms window, a thread a client): "
+        f"service {[round(w, 4) for w in walls['service']]} s, "
+        f"Campaign.run overlapped {[round(w, 4) for w in walls['campaign']]}"
+        f" s; last service run {last['dispatches']['count']} dispatches, "
+        f"{last['points_per_dispatch']:.2f} points a dispatch, coalesce "
+        f"ratio {last['coalesce_ratio']:.2f}, latency ms p50 "
+        f"{last['latency_ms']['p50']} p90 {last['latency_ms']['p90']} p99 "
+        f"{last['latency_ms']['p99']}")
+    say(f"phase 7e standalone server: started in "
+        f"{standalone['start_s']:.1f} s (library loaded before its first "
+        f"dispatch: {standalone['persistent']}), {len(pick)} RowClone and "
+        f"policy points over a socket == serial in "
+        f"{[round(w, 4) for w in standalone['wall_s']]} s (the process's "
+        f"first dispatches, then warm; frames {standalone['frames']} "
+        f"bytes), typed QueueFullError "
+        f"{standalone['refused']}; checkpoint: a new server loaded "
+        f"{n_groups} of {n_groups} dispatches in {load_s:.3f} s, launched "
+        f"nothing, and Campaign.run resumed from the service's files")
+    return {"groups": n_groups, "points": len(grid.points),
+            "coalescing": {"dispatches": st1["dispatches"],
+                           "coalesce_ratio": st1["coalesce_ratio"],
+                           "wall_s": first_s, "launches": counts},
+            "plan_cache": {"first": st1["compile"], "second": second_cache},
+            "wall_s": walls, "median_wall_s": med, "timed_runs": runs,
+            "standalone": standalone, "checkpoint_load_s": load_s,
+            "persistent_in_process": pers}
 
 
 def close(got, want, atol, rtol):
@@ -2419,7 +2724,7 @@ def main(argv=None):
                                       dram, emulator as emu, faults,
                                       policysearch, smcprog, techniques,
                                       timescale, traces)
-        from repro_torch import configs
+        from repro_torch import configs, service
         from repro_torch.kernels import ops, ref
         from repro_torch.models import model_zoo
         from repro_torch.serve import engine as engine_mod
@@ -2484,9 +2789,11 @@ def main(argv=None):
             cachesim, campaign)
         window_entry["max_abs_err"] = float(err)
         kernels.append(window_entry)
-        report["executor"] = phase_executor(
+        grid, grid_serial, report["executor"] = phase_executor(
             np, torch, ops, emu, campaign, techniques, policysearch, smcprog,
             traces, timescale, main_inputs, report["stream"], cpu_search)
+        report["service"] = phase_service(np, torch, ops, emu, service,
+                                          grid, grid_serial)
 
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)

@@ -31,7 +31,11 @@ power of two with all-NOP rows, and runs each group as one batch:
 Each group is a :class:`~repro_torch.core.executor.GroupTask` planned by
 :func:`prepare_tasks` on the caller's thread; the groups of one call run
 overlapped across the ``core.executor`` workers, each on a CUDA stream of
-its own, or in order under ``serial=True``, with equal results.
+its own, or in order under ``serial=True``, with equal results. A group's
+launch plan (its scan parameters, the ``slot_scan`` instantiation, a staged
+program's packed table and cost) comes from an LRU keyed by
+:func:`compile_key`, the counterpart of the reference's executable cache,
+with the same counters (:func:`cache_stats`).
 
 :func:`run_stream` / :func:`run_stream_many` take traces too long to
 materialize, in constant-memory windows (the section at the end): one
@@ -44,6 +48,7 @@ device they raise rather than run on the CPU unasked.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -66,10 +71,12 @@ from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import FP, FRONTIER_UPTO
-from repro_torch.kernels.slot_scan import ScanParams
+from repro_torch.kernels.slot_scan import ScanParams, instantiation
 
 __all__ = ["BIG", "FP", "EmulatorState", "Trace", "pad_trace",
-           "slot_budget", "group_key", "resolve_device", "prepare_tasks",
+           "slot_budget", "group_key", "compile_key", "stream_compile_key",
+           "cache_stats", "cache_clear", "set_cache_capacity",
+           "resolve_device", "prepare_tasks",
            "run", "run_many", "run_policies", "StreamState",
            "DEFAULT_STREAM_CHUNK", "DEFAULT_STREAM_DEP", "stream_halo",
            "stream_slot_budget", "shift_window", "prepare_stream_tasks",
@@ -226,7 +233,7 @@ def group_key(n: int, sys: SystemConfig, mode: str, blooms,
         return (_bucket(n), sys, _norm_mode(mode), _bloom_shape(blooms))
     return (_bucket(n), _policy_rt_sys(sys), _norm_mode(mode),
             _bloom_shape(blooms),
-            ("policy", smcprog.table_bucket(policy.n_ops)))
+            _policy_shape(smcprog.table_bucket(policy.n_ops)))
 
 
 def _normalize_policies(policies, policy_costs, sys: SystemConfig, n: int):
@@ -297,6 +304,145 @@ def _scan_params(sys: SystemConfig, mode: str, batch: int, n: int,
         **_fault_params(sys, para))
 
 
+def _policy_shape(policy_bucket: Optional[int]) -> Optional[tuple]:
+    return None if policy_bucket is None else ("policy", int(policy_bucket))
+
+
+def compile_key(bucket: int, batch: int, sys: SystemConfig, mode: str,
+                blooms, slots: Optional[int] = None,
+                policy_bucket: Optional[int] = None) -> tuple:
+    """Plan-cache key of one batch group, shaped as the reference's
+    executable key: (bucket, slot budget, padded batch, ``sys``, normalized
+    mode, Bloom shape, policy shape). ``sys`` carries a staged program
+    (hashed by content); ``policy_bucket`` selects the runtime policy
+    tables (callers pass a :func:`_policy_rt_sys`-normalized ``sys`` with
+    it), whose content never reaches the key."""
+    return (bucket, slots, _batch_bucket(batch), sys, _norm_mode(mode),
+            _bloom_shape(blooms), _policy_shape(policy_bucket))
+
+
+# ---------------------------------------------------------------------------
+# The plan cache, the counterpart of the reference's executable LRU
+# (``REPRO_EMU_CACHE_CAP``, :func:`set_cache_capacity`). The port builds one
+# kernel library and has no per-key executable, so an entry is a group's
+# launch plan: its ScanParams, the slot_scan instantiation it runs, and a
+# staged program's packed table and cost pair. A plan is host data only: no
+# device tensor, so a cached entry is never ordered against a worker's CUDA
+# stream. prepare_tasks / prepare_stream_tasks look plans up on the
+# caller's thread, in group order, so the counters settle as the
+# reference's do.
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: "collections.OrderedDict[tuple, _Plan]" = \
+    collections.OrderedDict()
+_CACHE_LOCK = threading.Lock()
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_CACHE_CAP = max(1, executor._env_int("REPRO_EMU_CACHE_CAP", 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """One group's launch plan, a function of its cache key alone. A
+    runtime-policy group's tables and costs are data (``cost`` None); a
+    staged program's table and a staged or legacy group's cost pair are
+    here."""
+    params: ScanParams            # with para_rand off: see scan_params
+    instantiation: str            # slot_scan's "fast" or "wide"
+    table: Optional[np.ndarray]   # a staged program, packed [lb + 1, 4]
+    cost: Optional[tuple]         # (counter_inc, smc_latency_proc)
+
+    def scan_params(self, batch: int, para: bool) -> ScanParams:
+        """The launch's scalars for a group of ``batch`` rows (a stream
+        group is not padded to the key's power of two) whose runtime tables
+        do (``para``) or do not load ``para_rand``."""
+        p = self.params
+        if p.batch != batch:
+            p = dataclasses.replace(p, batch=batch)
+        if para and not p.faults:
+            p = dataclasses.replace(p, faults=1)
+        return p
+
+
+def _build_plan(sys: SystemConfig, mode: str, batch: int, n: int,
+                slots: int, lb: Optional[int], use_weak: bool) -> _Plan:
+    """The plan of a key; ``lb`` is the runtime table bucket (None for a
+    staged or legacy group)."""
+    table = cost = None
+    para = False
+    if lb is None:
+        cost = _policy_cost_pair(sys, sys.smc_cycles_per_decision)
+        if sys.policy is not None:
+            lb = smcprog.table_bucket(sys.policy.n_ops)
+            table = smcprog.pack_program(sys.policy, lb)
+            table.setflags(write=False)
+            para = sys.policy.uses(smcprog.OP_PARA_RAND)
+    p = _scan_params(sys, mode, batch, n, slots, lb or 0, use_weak, para)
+    return _Plan(p, instantiation(p), table, cost)
+
+
+def _plan(key: tuple, build) -> _Plan:
+    """Get or build the plan of ``key``. The lock is held across the build
+    (host arithmetic), so two threads racing on one key neither duplicate
+    the entry nor skew the counters; a build that raises counts
+    nothing."""
+    with _CACHE_LOCK:
+        plan = _PLAN_CACHE.get(key)
+        if plan is not None:
+            _CACHE_STATS["hits"] += 1
+            _PLAN_CACHE.move_to_end(key)
+            return plan
+        plan = build()
+        _CACHE_STATS["misses"] += 1
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _CACHE_CAP:
+            _PLAN_CACHE.popitem(last=False)
+            _CACHE_STATS["evictions"] += 1
+    return plan
+
+
+def cache_stats() -> dict:
+    """Plan-cache counters since the last :func:`cache_clear`: ``hits`` /
+    ``misses`` over the lookups of :func:`prepare_tasks` and
+    :func:`prepare_stream_tasks`, ``evictions`` (LRU drops past
+    ``capacity``), the current ``size`` and ``capacity``, and ``lookups``
+    (= hits + misses). One ``_CACHE_LOCK`` region reads them, the lock
+    every writer holds across its update, so every snapshot has
+    ``lookups == hits + misses``, ``size <= capacity`` and ``size == misses
+    - evictions``. ``persistent`` reports the kernel library's on-disk
+    build (``kernels.ops.persistent_stats``: a hit is a library loaded from
+    disk, a miss an nvcc build in this process; all zero on the CPU)."""
+    with _CACHE_LOCK:
+        out = dict(_CACHE_STATS)
+        out["size"] = len(_PLAN_CACHE)
+        out["capacity"] = _CACHE_CAP
+        out["lookups"] = out["hits"] + out["misses"]
+    out["persistent"] = ops.persistent_stats()
+    return out
+
+
+def cache_clear() -> None:
+    """Drop every cached plan and zero the hit, miss and eviction
+    counters."""
+    with _CACHE_LOCK:
+        _PLAN_CACHE.clear()
+        for k in _CACHE_STATS:
+            _CACHE_STATS[k] = 0
+
+
+def set_cache_capacity(n: int) -> int:
+    """Bound the plan cache to ``n`` entries (LRU); returns the previous
+    capacity. Shrinking evicts at once."""
+    global _CACHE_CAP
+    if n < 1:
+        raise ValueError(f"cache capacity must be >= 1, got {n}")
+    with _CACHE_LOCK:
+        old, _CACHE_CAP = _CACHE_CAP, n
+        while len(_PLAN_CACHE) > _CACHE_CAP:
+            _PLAN_CACHE.popitem(last=False)
+            _CACHE_STATS["evictions"] += 1
+    return old
+
+
 def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
               mode: str) -> dict:
     """Per-trace derived metrics, computed on the host from the ints."""
@@ -313,31 +459,30 @@ def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
     return out
 
 
-def _group_tables(sys: SystemConfig, idxs, lb, pol, bb: int, device):
+def _group_tables(sys: SystemConfig, plan: _Plan, idxs, pol, bb: int,
+                  device):
     """One group's decision inputs: the packed policy tables ``[bb, lb + 1,
-    4]`` (None for the legacy scheduler flag), the cost pairs ``[bb, 2]``,
-    the table bucket (0 without tables) and whether a table loads
-    ``para_rand`` (the fault path). Runtime tables come one per row; a
-    staged ``sys.policy`` is the same table on every row, at ``sys``'s
-    decision cost."""
-    if lb is not None:       # runtime policy tables, one per row
+    4]`` (None for the legacy scheduler flag), the cost pairs ``[bb, 2]``
+    and whether a runtime table loads ``para_rand`` (the fault path).
+    Runtime tables come one per row; a staged ``sys.policy`` is the plan's
+    table on every row, and a staged or legacy group's cost pair is the
+    plan's."""
+    if plan.cost is None:    # runtime policy tables, one per row
         progs = [pol[0][i] for i in idxs]
         cost_rows = [_policy_cost_pair(sys, pol[1][i]) for i in idxs]
-    elif sys.policy is not None:   # staged program: same table, sys cost
-        progs = [sys.policy] * len(idxs)
-        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
-        lb = smcprog.table_bucket(sys.policy.n_ops)
-    else:                    # legacy scheduler flag
-        progs = None
-        cost_rows = [_policy_cost_pair(sys, sys.smc_cycles_per_decision)]
+        packed = [smcprog.pack_program(p, plan.params.table_len)
+                  for p in progs]
+        para = any(p.uses(smcprog.OP_PARA_RAND) for p in progs)
+    else:                    # a staged program or the legacy flag
+        cost_rows = [plan.cost]
+        packed = None if plan.table is None else [plan.table]
+        para = False
     cost_rows = cost_rows + [cost_rows[0]] * (bb - len(cost_rows))
     costs = torch.tensor(cost_rows, dtype=torch.int32, device=device)
-    if progs is None:
-        return None, costs, 0, False
-    para = any(p.uses(smcprog.OP_PARA_RAND) for p in progs)
-    packed = [smcprog.pack_program(p, lb) for p in progs]
+    if packed is None:
+        return None, costs, para
     packed += [packed[0]] * (bb - len(packed))
-    return torch.from_numpy(np.stack(packed)).to(device), costs, lb, para
+    return torch.from_numpy(np.stack(packed)).to(device), costs, para
 
 
 def _group_blooms(blooms, idxs, bb: int, device):
@@ -384,11 +529,13 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
     :class:`~repro_torch.core.executor.GroupTask`s without running them.
 
     Grouping (length bucket, normalized mode, policy-table bucket), slot
-    budgets and the kernel library's build happen here, on the caller's
-    thread; each task's ``pack`` pads, stacks and uploads its group, its
-    ``fn`` launches ``bloom_probe`` (with a filter) and ``slot_scan``, and
-    its ``finalize`` writes the group's records into its own ``results``
-    slots (``results`` is a list of ``len(traces)`` Nones)."""
+    budgets, the plan-cache lookups (in group order, so that
+    :func:`cache_stats` settles deterministically) and the kernel
+    library's build happen here, on the caller's thread; each task's
+    ``pack`` pads, stacks and uploads its group, its ``fn`` launches
+    ``bloom_probe`` (with a filter) and ``slot_scan``, and its
+    ``finalize`` writes the group's records into its own ``results`` slots
+    (``results`` is a list of ``len(traces)`` Nones)."""
     dev = resolve_device(device)
     traces = list(traces)
     n = len(traces)
@@ -408,9 +555,13 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
     for (bucket, gmode, lb), idxs in groups.items():
         slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
         bb = _batch_bucket(len(idxs))
+        gsys = sys if lb is None else _policy_rt_sys(sys)
+        plan = _plan(
+            compile_key(bucket, len(idxs), gsys, gmode, blooms, slots, lb),
+            lambda: _build_plan(gsys, gmode, bb, bucket, slots, lb,
+                                blooms is not None))
 
-        def pack(idxs=idxs, bucket=bucket, gmode=gmode, lb=lb, slots=slots,
-                 bb=bb):
+        def pack(idxs=idxs, bucket=bucket, plan=plan, bb=bb):
             padded = [pad_trace(traces[i], bucket) for i in idxs]
             if bb > len(idxs):  # all-NOP filler rows, discarded below
                 filler = Trace.of(np.full(bucket, NOP), np.zeros(bucket),
@@ -423,11 +574,10 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
                     f"trace banks must lie in [0, {geo.n_banks})")
             arrays = tuple(_upload(a, dev) for a in stacked)
             bf = _group_blooms(blooms, idxs, bb, dev)
-            tables, costs, tlb, para = _group_tables(sys, idxs, lb, pol, bb,
-                                                     dev)
-            p = _scan_params(sys, gmode, bb, bucket, slots, tlb,
-                             bf is not None, para)
-            return arrays + (bf, tables, costs, p), padded
+            tables, costs, para = _group_tables(sys, plan, idxs, pol, bb,
+                                                dev)
+            return arrays + (bf, tables, costs,
+                             plan.scan_params(bb, para)), padded
 
         def finalize(out, padded, idxs=idxs):
             for j, i in enumerate(idxs):
@@ -563,6 +713,20 @@ def stream_slot_budget(chunk: int, sys: SystemConfig) -> int:
     carried queued entries (2 * max(window, 2)) and slack (12). It also
     drains the freeze-lifted final window; surplus slots are no-ops."""
     return 2 * chunk + 2 * max(int(sys.window), 2) + 12
+
+
+def stream_compile_key(chunk: int, batch: int, sys: SystemConfig, mode: str,
+                       blooms=None, dep_max: int = DEFAULT_STREAM_DEP,
+                       policy_bucket: Optional[int] = None) -> tuple:
+    """Plan-cache key of one stream group, shaped as the reference's: the
+    chunk, halo, window slot budget, padded batch, ``sys``, normalized
+    mode, Bloom shape and policy shape, and nothing of the streams'
+    lengths, so streams of any length on one configuration share an
+    entry."""
+    return ("stream", int(chunk), stream_halo(sys, dep_max),
+            stream_slot_budget(chunk, sys), _batch_bucket(batch), sys,
+            _norm_mode(mode), _bloom_shape(blooms),
+            _policy_shape(policy_bucket))
 
 
 def _nop_fields(k: int) -> tuple:
@@ -804,7 +968,8 @@ def prepare_stream_tasks(streams: Sequence, sys: SystemConfig,
     """Plan a :func:`run_stream_many` call into
     :class:`~repro_torch.core.executor.StreamTask`s without running them:
     grouping by (normalized mode, policy-table bucket), the argument
-    checks and the kernel library's build on the caller's thread, and
+    checks, the plan-cache lookups (:func:`stream_compile_key`, in group
+    order) and the kernel library's build on the caller's thread, and
     closures that assemble windows (the chunkers' next blocks,
     ``np.stack``, the bank check, a pinned copy), stage and scan each
     window (upload, shift, probe, the scan's window entry), consume each
@@ -898,12 +1063,16 @@ def prepare_stream_tasks(streams: Sequence, sys: SystemConfig,
     tasks: List[executor.StreamTask] = []
     for (gmode, lb), idxs in groups.items():
         B = len(idxs)
+        gsys = sys if lb is None else _policy_rt_sys(sys)
+        plan = _plan(
+            stream_compile_key(chunk, B, gsys, gmode, blooms, dep_max, lb),
+            lambda: _build_plan(gsys, gmode, _batch_bucket(B), L, SL, lb,
+                                blooms is not None))
 
-        def pack(idxs=idxs, gmode=gmode, lb=lb, B=B):
+        def pack(idxs=idxs, plan=plan, B=B):
             bf = _group_blooms(blooms, idxs, B, dev)
-            tables, costs, tlb, para = _group_tables(sys, idxs, lb, pol, B,
-                                                     dev)
-            p = _scan_params(sys, gmode, B, L, SL, tlb, bf is not None, para)
+            tables, costs, para = _group_tables(sys, plan, idxs, pol, B, dev)
+            p = plan.scan_params(B, para)
             clock = _Clock(timings is not None, dev)
             ctx = {"chunkers": [_Chunker(streams[i], chunk, dep_max)
                                 for i in idxs],

@@ -57,6 +57,10 @@ _COUNT_LOCK = threading.Lock()   # the counters; workers launch concurrently
 _LOCK = threading.Lock()         # the library's build and load
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
+# the library's on-disk build: a hit is a library loaded from disk, a miss
+# an nvcc build in this process (the counterpart of the reference's
+# persistent compile cache)
+_PERSISTENT = {"hits": 0, "misses": 0}
 
 
 def launches() -> dict:
@@ -101,6 +105,16 @@ def aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
+def persistent_stats() -> dict:
+    """``{'hits', 'misses', 'dir'}`` of the library's on-disk build: hits
+    count libraries loaded from ``BUILD_DIR``, misses nvcc builds in this
+    process; all zero, with ``dir`` None, until a library was built or
+    loaded (always on the CPU)."""
+    with _COUNT_LOCK:
+        built = _PERSISTENT["hits"] + _PERSISTENT["misses"]
+        return {**_PERSISTENT, "dir": str(BUILD_DIR) if built else None}
+
+
 def stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of ``device``'s current stream, read
     without building a ``torch.cuda.Stream`` (a twentieth of the host time
@@ -134,6 +148,8 @@ def build() -> Path:
     lib_path = out_dir / f"libreprotorch_{h.hexdigest()[:16]}.so"
     if lib_path.exists():
         BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)
+        with _COUNT_LOCK:
+            _PERSISTENT["hits"] += 1
         return lib_path
     nvcc = _nvcc()
     work = out_dir / f"work-{os.getpid()}"
@@ -164,6 +180,8 @@ def build() -> Path:
     os.replace(tmp, lib_path)
     shutil.copy(work / "build.log", out_dir / "build.log")
     shutil.rmtree(work, ignore_errors=True)
+    with _COUNT_LOCK:
+        _PERSISTENT["misses"] += 1
     BUILD_INFO.update(
         path=str(lib_path), seconds=time.perf_counter() - t0, cached=False,
         ptxas=[ln.strip() for ln in log.splitlines()

@@ -4,8 +4,14 @@
       --preset tiny --batch 4 --prompt-len 128 --new 16 [--device cpu]
 
 Weights and prompts are random, from seed 0 as in the reference. The
-device defaults to CUDA. The reference launcher also fronts the sweep service (``sweep``); that
-subcommand is not ported yet (ROADMAP Queue A 11).
+device defaults to CUDA.
+
+Also fronts the sweep service (a shared multi-client campaign server):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve sweep --port 7421
+
+which is ``python -m repro_torch.service`` (see that module for the
+flags; ``--device cpu`` runs the plain PyTorch engine).
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ PRESETS = {
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "sweep":
-        raise NotImplementedError(
-            "the sweep service is not ported yet (ROADMAP Queue A 11)")
+        from repro_torch.service.__main__ import main as sweep_main
+        sweep_main(argv[1:])
+        return
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--preset", default="tiny", choices=sorted(PRESETS))

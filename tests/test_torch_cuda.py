@@ -719,6 +719,67 @@ def test_overlapped_wide_groups_of_different_layouts(cuda_device):
                                               err_msg=f"{shape} {f}")
 
 
+def service_points():
+    """A small grid: ts, nots, a Bloom filter, a fault model, a staged and
+    a runtime policy, over seeded bucket-64 traces."""
+    from repro_torch.core.campaign import Point
+    rng = np.random.RandomState(5)
+    trs = [interop.trace_from_arrays(
+        kind=rng.randint(0, 5, n), bank=rng.randint(0, 16, n),
+        row=rng.randint(0, 256, n), delta=rng.randint(0, 24, n),
+        dep=rng.randint(0, 3, n)) for n in (40, 52, 60)]
+    bf = BloomFilter.build(np.arange(0, 4096, 3, dtype=np.uint32),
+                           m_bits=1 << 14, k=3)
+    bloom = (bf.bits, bf.k, bf.m_bits)
+    fsys = JETSON_NANO.with_faults(FaultModel(**CARD_FM))
+    ssys = JETSON_NANO.with_policy(smcprog.frfcfs_program())
+    prog = smcprog.fcfs_program()
+    pts = []
+    for tr in trs:
+        for sys_, mode, bl in ((JETSON_NANO, "ts", None),
+                               (JETSON_NANO, "nots", None),
+                               (JETSON_NANO, "reference", bloom),
+                               (fsys, "ts", None), (ssys, "nots", None)):
+            pts.append(Point(tr, sys_, mode, bl, {"idx": len(pts)}))
+        pts.append(Point(tr, JETSON_NANO, "ts", None,
+                         {"idx": len(pts), "policy": prog.name},
+                         policy=prog, policy_cost=prog.smc_cycles()))
+    return pts
+
+
+@pytest.mark.cuda
+def test_sweep_service_on_the_card_equals_serial_campaign(cuda_device):
+    """Three clients through the service on the card (the default
+    device): their records equal the port's serial ``Campaign.run`` on
+    the card and on the CPU (the plain engine), and the service's
+    dispatches launched ``slot_scan`` and ``bloom_probe``."""
+    from repro_torch.core.campaign import Campaign
+    from repro_torch.service import SweepClient, SweepServer
+    pts = service_points()
+    camp = Campaign()
+    camp.points = pts
+    card = camp.run(serial=True)
+    plain = camp.run(serial=True, device="cpu")
+    ops.reset_launches()
+    with SweepServer(coalesce_window_s=0.25) as srv:
+        clis = [SweepClient(server=srv, name=f"c{k}") for k in range(3)]
+        for p in pts:   # one trace a client: 3 clients in every group
+            clis[p.meta["idx"] // 6].submit_points([p])
+        got = {}
+        for cli in clis:
+            got.update((r["idx"], r) for r in cli.collect(timeout=300))
+        st = srv.stats()
+    counts = ops.launches()
+    assert counts["slot_scan"] == st["dispatches"]["count"] == 6
+    assert counts["bloom_probe"] >= 1 and st["coalesce_ratio"] == 3.0
+    for want_card, want_plain in zip(card, plain):
+        rec = got[want_card["idx"]]
+        for f in ("exec_cycles", "row_hits", "served", "dram_ticks",
+                  "smc_fpga_cycles", "t_resp", "t_issue"):
+            np.testing.assert_array_equal(rec[f], want_card[f], err_msg=f)
+            np.testing.assert_array_equal(rec[f], want_plain[f], err_msg=f)
+
+
 # the grid and tolerances of tests/test_kernels.py: the kernel sums in
 # another order than the plain softmax (online, in key tiles) and splits
 # each product into three TF32 products (3xTF32)

@@ -470,8 +470,10 @@ def test_launch_serve_on_cpu(capsys):
                   "--prompt-len", "128", "--new", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "qwen3-8b on cpu: 2x3 tokens" in out
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        plaunch.main(["sweep"])
+    with pytest.raises(SystemExit) as ei:   # the sweep service's parser
+        plaunch.main(["sweep", "--help"])
+    assert ei.value.code == 0
+    assert "python -m repro_torch.service" in capsys.readouterr().out
 
 
 def test_lm_params_from_numpy_defaults_to_cuda(monkeypatch):

@@ -323,9 +323,9 @@ def test_window_step_equals_reference_step_on_a_handed_over_state():
     fields = [np.asarray(getattr(hammer, f), np.int32)
               for f in ("kind", "bank", "row", "delta", "dep")]
     n_win = -(-hammer.n // chunk)
-    tables, costs, lb, para = pe._group_tables(psys, [0], None, None, 1,
-                                               CPU)
-    p = pe._scan_params(psys, "ts", 1, L, slots, lb, False, para)
+    plan = pe._build_plan(psys, "ts", 1, L, slots, None, False)
+    tables, costs, para = pe._group_tables(psys, plan, [0], None, 1, CPU)
+    p = plan.scan_params(1, para)
     for k in range(n_win):
         blk = []
         for a in fields:

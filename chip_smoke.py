@@ -7,7 +7,7 @@ Usage (from the repository root, on a machine with an NVIDIA H100)::
 
 Phases, one line each:
 
-1. build the CUDA kernels from the five sources in
+1. build the CUDA kernels from the six sources in
    ``src/repro_torch/kernels/csrc``;
 2. ``bloom_probe`` kernel against its plain version (the reference test
    grid, every global row id through the paper-size filter, and
@@ -96,6 +96,18 @@ Phases, one line each:
    ``QueueFullError``; a drain-close with a checkpoint directory, then a
    new server on it and ``Campaign.run(checkpoint=...)``, neither
    launching anything;
+7f. the reference engine and sharding: ``ref_scan`` through
+   ``run_ref_many`` on seeded cut groups (``REF_CASES``: ts, nots and
+   reference with a shared Bloom filter, a filter per trace, runtime and
+   staged policies, PARA without a fault model, phase 7b's fault model,
+   a window of 80 over 128 banks with a 512-row table) against its plain
+   version in CPU workers on every field; ``run_ref_many`` over phase 5's
+   inputs at full size (counters reset just before), equal to
+   ``run_many`` on every field, with ``ref_scan``'s time and ns per slot
+   beside ``slot_scan``'s on the same groups; phase 7d's grid under
+   ``set_sharding('force')`` (and ``'auto'`` across cards where there is
+   more than one) equal to the unsharded records, the plan cache missing
+   once a group on the first pass and not at all on the second;
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
@@ -123,9 +135,9 @@ at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
 shows no launch; each entry names its method.
 
 The engine's entry points launch ``bloom_probe`` and ``slot_scan`` (a
-stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``),
-the serving engine ``flash_attention`` and ``rowclone_copy``; the
-policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
+stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``;
+``run_ref`` / ``run_ref_many``, ``ref_scan``), the serving engine
+``flash_attention`` and ``rowclone_copy``; the policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
 
@@ -157,6 +169,7 @@ REPLACES = {
     "policy_vm": "src/repro/kernels/policy_vm.py:31",
     "slot_scan": "src/repro/core/emulator.py:531",
     "slot_scan_window": "src/repro/core/emulator.py:1645",
+    "ref_scan": "src/repro/core/emulator.py:735",
     "flash_attention": "src/repro/kernels/flash_attention.py:21",
     "rowclone_copy": "src/repro/kernels/rowclone_copy.py:18",
 }
@@ -244,6 +257,12 @@ SERVICE_WEIGHTS = (1.0, 1.0, 2.0)
 SERVICE_LONG_WINDOW_S = 0.25
 SERVICE_TURNS = 2
 SERVICE_MAX_PENDING = 32
+# phase 7f and the card tests: the reference engine's cut groups (seeded,
+# 24-300 requests a trace) held against its plain version on every field
+REF_SEED = 11
+REF_CASES = ("modes-bloom-shared", "bloom-per-trace", "runtime-policies",
+             "staged-policy", "para-no-fault-model", "faults-legacy",
+             "faults-policies", "wide-q80-banks128-table512")
 VM_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)   # phase 3
 LM_ARCH = "qwen3_8b"      # the serving path's model, at full width
 LM_SEED = 0
@@ -350,6 +369,7 @@ class Recorder:
         self.bloom_args = None
         self.groups = []
         self.windows = []
+        self.refs = []
         self.tag = ""
         # the executor's workers launch from several threads at once
         self.lock = threading.Lock()
@@ -401,14 +421,24 @@ class Recorder:
                                      "out": out})
             return out
 
+        def rs(*args):
+            out = o["ref_scan"](*args)
+            host = {f: v.cpu().numpy() for f, v in out.items()}
+            with self.lock:
+                self.refs.append({"tag": self.tag, "args": args,
+                                  "out": host})
+            return out
+
         self.ops.bloom_probe, self.ops.slot_scan = bp, ss
         self.ops.slot_scan_window = ssw
+        self.ops.ref_scan = rs
 
     def plain(self):
         r = self.ref
         self.ops.bloom_probe = r.bloom_probe_ref
         self.ops.slot_scan = r.slot_scan_ref
         self.ops.slot_scan_window = r.slot_scan_window_ref
+        self.ops.ref_scan = r.ref_scan_ref
         self.ops.policy_vm = r.policy_vm_ref
 
     def restore(self):
@@ -2290,6 +2320,307 @@ def phase_service(np, torch, ops, emu, service, grid, serial):
             "persistent_in_process": pers}
 
 
+def ref_cases(np, emu, smcprog, timescale, traces, faults, bloom_mod):
+    """``REF_CASES``: name -> (traces, system, ``run_ref_many`` keyword
+    arguments), seeded cut groups of 24-300 requests: ts, nots and
+    reference with a shared Bloom filter, a Bloom filter per trace, the
+    built-in policies as runtime tables, a staged policy, PARA without a
+    fault model, phase 7b's fault model under the legacy scheduler and
+    under the mitigation programs, and a window of 80 over 128 banks with a
+    512-row table."""
+    jn = timescale.JETSON_NANO
+    rng = np.random.RandomState(REF_SEED)
+
+    def trace(n, n_banks=16):
+        return emu.Trace.of(
+            kind=rng.choice(5, n, p=(0.5, 0.3, 0.05, 0.05, 0.1)),
+            bank=rng.randint(0, n_banks, n), row=rng.randint(0, 256, n),
+            delta=rng.randint(0, 40, n), dep=rng.randint(0, 5, n))
+
+    def bloom():
+        keys = rng.randint(0, 16 * 256, 1500).astype(np.uint32)
+        bf = bloom_mod.BloomFilter.build(keys, m_bits=1 << 13, k=3)
+        return (bf.bits, bf.k, bf.m_bits)
+
+    fm = faults.FaultModel(**STUDY_FM)
+    builtins = list(smcprog.builtin_programs().values())
+    mit = list(smcprog.mitigation_programs(para_fp=20000,
+                                           trr_threshold=4).values())
+    storms = [traces.rowhammer_trace(n, jn.geometry, intensity=x, seed=i)
+              for i, (n, x) in enumerate(((300, 0.9), (200, 0.7)))]
+    wide = dataclasses.replace(jn, window=80, geometry=dataclasses.replace(
+        jn.geometry, n_banks=128))
+    long = long_program(smcprog, 300)
+    trs = [trace(n) for n in (300, 240, 24, 150)]
+
+    def costs(progs):
+        return {"policies": progs,
+                "policy_costs": [p.smc_cycles() for p in progs]}
+    return {
+        "modes-bloom-shared": (trs, jn, {
+            "mode": ["ts", "nots", "reference", "ts"], "blooms": bloom()}),
+        "bloom-per-trace": (trs[:3], jn, {"blooms": [bloom()
+                                                     for _ in range(3)]}),
+        "runtime-policies": ([trs[1]] * len(builtins), jn,
+                             costs(builtins)),
+        "staged-policy": (trs[:2], jn.with_policy(builtins[2]),
+                          {"mode": "nots"}),
+        "para-no-fault-model": ([storms[0]] * len(mit), jn, costs(mit)),
+        "faults-legacy": (storms, jn.with_faults(fm), {}),
+        "faults-policies": ([storms[1]] * len(mit), jn.with_faults(fm),
+                            costs(mit)),
+        "wide-q80-banks128-table512": (
+            [trace(30, 128), trace(24, 128)], wide,
+            {"policies": [long, builtins[0]],
+             "policy_costs": [long.smc_cycles(), 40]}),
+    }
+
+
+def plain_ref_job(arrays, bloom, params):
+    """One recorded ``ref_scan`` group through its plain version on the
+    CPU, in a worker process; returns its output fields and seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slot_scan import ScanParams
+    torch.set_num_threads(1)
+    t = {k: None if v is None else torch.from_numpy(v)
+         for k, v in arrays.items()}
+    bf = None if bloom is None else (torch.from_numpy(bloom[0]),) + bloom[1:]
+    t0 = time.perf_counter()
+    out = ref.ref_scan_ref(t["kind"], t["bank"], t["row"], t["delta"],
+                           t["dep"], bf, t["tables"], t["costs"],
+                           ScanParams(**params))
+    return {f: v.numpy() for f, v in out.items()}, time.perf_counter() - t0
+
+
+def ref_group_ns(cuda, groups):
+    """ms per call and ns per budget slot of each recorded group, each
+    relaunched once on its own inputs."""
+    out = []
+    for g in groups:
+        p = g["args"][-1]
+        ms = cuda(g["args"])
+        out.append({"tag": g["tag"], "batch": p.batch, "n": p.n,
+                    "slots": p.slots, "table_len": p.table_len, "ms": ms,
+                    "ns_per_slot": ms * 1e6 / max(p.slots, 1)})
+    return out
+
+
+def phase_ref(np, torch, ops, ref, emu, smcprog, timescale, traces, faults,
+              bloom_mod, inputs, grid, grid_serial):
+    """Phase 7f, the reference engine and sharding: (a) ``ref_scan`` on the
+    ``REF_CASES`` cuts against its plain version in CPU workers, every
+    field; (b) ``run_ref_many`` over phase 5's inputs at full size (counters
+    reset just before), equal to ``run_many`` on every field, with its
+    launches, time and ns per slot beside ``slot_scan``'s on the same
+    groups; (c) phase 7d's grid under ``set_sharding('force')`` (and
+    'auto' across cards on a host with more than one), equal to the
+    unsharded records, the plan cache missing once a group on the first
+    pass and never on the second. Returns the kernel's JSON entry."""
+    t_phase = time.perf_counter()
+    jn = timescale.JETSON_NANO
+    geo = jn.geometry
+
+    # (a) the cuts: kernel against plain, on the recorded inputs
+    cases = ref_cases(np, emu, smcprog, timescale, traces, faults, bloom_mod)
+    rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    rec.record()
+    for name, (trs, sys_, kw) in cases.items():
+        rec.tag = name
+        emu.run_ref_many(trs, sys_, **kw)
+    rec.restore()
+    torch.cuda.synchronize()
+    flips = sum(int(g["out"]["flips"].sum()) for g in rec.refs
+                if "flips" in g["out"])
+    check(flips > 0, "phase 7f: the fault cuts flipped nothing")
+    names = ("kind", "bank", "row", "delta", "dep")
+    jobs = []
+    for g in rec.refs:
+        a = g["args"]
+        arrays = {n: t.cpu().numpy() for n, t in zip(names, a[:5])}
+        arrays["tables"] = None if a[6] is None else a[6].cpu().numpy()
+        arrays["costs"] = a[7].cpu().numpy()
+        bloom = None if a[5] is None else (a[5][0].cpu().numpy(),) \
+            + tuple(a[5][1:])
+        jobs.append((g, arrays, bloom))
+    # longest first: the plain cost grows with the table's rows a lane and
+    # with the fault draws
+    jobs.sort(key=lambda j: -j[0]["args"][-1].slots
+              * (1 + j[0]["args"][-1].table_len * j[0]["args"][-1].q // 16)
+              * (4 if j[0]["args"][-1].faults else 1))
+    workers = min(len(jobs), len(os.sched_getaffinity(0)), MAX_WORKERS)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(plain_ref_job, arrays, bloom,
+                            dataclasses.asdict(g["args"][-1]))
+                for g, arrays, bloom in jobs]
+        results = [f.result() for f in futs]
+    cut_wall = time.perf_counter() - t0
+    err = 0
+    for (g, _, _), (want, _) in zip(jobs, results):
+        got = g["out"]
+        check(set(got) == set(want), f"phase 7f: ref_scan and its plain "
+                                     f"version give other fields ({g['tag']})")
+        for f in want:
+            e = int(np.abs(got[f].astype(np.int64)
+                           - want[f].astype(np.int64)).max())
+            err = max(err, e)
+            check(e == 0, f"phase 7f: ref_scan != plain on {f} in the "
+                          f"{g['tag']} cut")
+    cut_cpu_s = sum(s for _, s in results)
+
+    # (b) full size: run_many's records, then run_ref_many's on the same
+    # calls with the counters reset just before
+    trs, bloom, rc_device = inputs
+    rc_trs = [gen(nb, geo, mode=arm, device=rc_device, setting="noflush")[0]
+              for gen in (traces.copy_workload, traces.init_workload)
+              for nb in ROWCLONE_SIZES for arm in ("cpu", "rowclone")]
+    builtins = list(smcprog.builtin_programs().values())
+    calls = {
+        "trcd-base": ((trs, jn), {}),
+        "trcd-reduced-reference": ((trs + trs, jn), {
+            "mode": ["ts"] * len(trs) + ["reference"] * len(trs),
+            "blooms": bloom}),
+        "rowclone": ((rc_trs, jn), {}),
+        "policies": (([trs[0]] * len(builtins), jn), {
+            "policies": builtins,
+            "policy_costs": [p.smc_cycles() for p in builtins]}),
+    }
+    fast_rec = Recorder(ops, ref, emu.NOP, emu.BIG)
+    fast_rec.record()
+    fast = {}
+    for tag, (a, kw) in calls.items():
+        fast_rec.tag = tag
+        fast[tag] = emu.run_many(*a, **kw)
+    fast_rec.restore()
+    full = Recorder(ops, ref, emu.NOP, emu.BIG)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    full.record()
+    t0 = time.perf_counter()
+    slow = {}
+    for tag, (a, kw) in calls.items():
+        full.tag = tag
+        slow[tag] = emu.run_ref_many(*a, **kw)
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    counts = ops.launches()
+    full.restore()
+    check(counts["ref_scan"] > 0 and counts["slot_scan"] == 0
+          and counts["bloom_probe"] == 0,
+          f"phase 7f: run_ref_many launched {counts}")
+    for tag in calls:
+        same_records(np, slow[tag], fast[tag], f"phase 7f run_ref == run "
+                                               f"({tag})")
+    kern = full.orig["ref_scan"]
+    scan = full.orig["slot_scan"]
+    refs = ref_group_ns(lambda a: cuda_ms(lambda: kern(*a), reps=1),
+                        full.refs)
+    fasts = ref_group_ns(lambda a: cuda_ms(lambda: scan(*a), reps=1),
+                         fast_rec.groups)
+    pairs = []
+    for r in refs:   # the same group of the same call in both engines
+        f = next((f for f in fasts if (f["tag"], f["batch"], f["n"],
+                                       f["table_len"])
+                  == (r["tag"], r["batch"], r["n"], r["table_len"])), None)
+        if f is not None:
+            pairs.append({"ref": r, "slot_scan": f,
+                          "ratio_per_slot": r["ns_per_slot"]
+                          / f["ns_per_slot"]})
+    big = max(full.refs, key=lambda g: (g["args"][-1].slots,
+                                       g["args"][-1].batch))
+    args = big["args"]
+    p = args[-1]
+    ms = cuda_ms(lambda: kern(*args), reps=2)
+    dev_fields = device_fields(lambda: kern(*args), "ref_scan_kernel")
+    cut = dataclasses.replace(p, slots=min(p.slots, 200))
+    cargs = args[:-1] + (cut,)
+    kc, pc = kern(*cargs), ref.ref_scan_ref(*cargs)
+    err = max(err, max(float((kc[f] - pc[f]).abs().max()) for f in FIELDS))
+    check(err == 0, f"phase 7f: ref_scan != plain over a {cut.slots}-slot "
+                    f"cut of the largest group")
+    plain_ms = cuda_ms(lambda: ref.ref_scan_ref(*cargs), reps=1)
+    B, N = p.batch, p.n
+    words = args[5][0] if args[5] is not None else None
+    nbytes = B * N * (5 * 4 + 2 * 4) + B * 5 * 4 \
+        + (words.numel() * 4 if words is not None else 0) \
+        + (args[6].numel() * 4 if args[6] is not None else 0)
+    nops = B * p.slots * (200 + 15 * p.table_len * p.q)
+    bms, bby = bound_ms(nbytes, nops)
+
+    # (c) sharding: phase 7d's grid forced through the shard path, then
+    # 'auto' across the cards where there is more than one
+    n_groups = grid.n_groups()
+    shard = {"cards": torch.cuda.device_count()}
+    modes = ["force"] + (["auto"] if shard["cards"] > 1 else [])
+    old = emu.set_sharding("force")
+    try:
+        for mode in modes:
+            emu.set_sharding(mode)
+            passes = []
+            for _ in range(2):
+                c0 = emu.cache_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = grid.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c1 = emu.cache_stats()
+                same_records(np, out, grid_serial, f"phase 7f {mode} grid")
+                passes.append({"wall_s": wall,
+                               "misses": c1["misses"] - c0["misses"],
+                               "hits": c1["hits"] - c0["hits"]})
+            check(passes[0]["misses"] == n_groups
+                  and passes[1]["misses"] == 0
+                  and passes[1]["hits"] == n_groups,
+                  f"phase 7f {mode}: plan cache {passes} over {n_groups} "
+                  f"groups")
+            shard[mode] = passes
+    finally:
+        emu.set_sharding(old)
+
+    entry = {"name": "ref_scan", "route": "cuda",
+             "source": SOURCES["ref_scan"], "replaces": REPLACES["ref_scan"],
+             "launches": counts["ref_scan"], "max_abs_err": float(err),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": bby, "library_ms": None, **dev_fields,
+             "slots": p.slots, "plain_slots": cut.slots,
+             "ns_per_slot": ms * 1e6 / p.slots,
+             "shape": f"{big['tag']} group, batch {B} x {N} requests, "
+                      f"{p.slots} slots"}
+    detail = {"cuts": {"groups": len(jobs), "plain_cpu_s": cut_cpu_s,
+                       "wall_s": cut_wall, "flips": flips},
+              "full": {"wall_s": full_wall, "launches": counts["ref_scan"],
+                       "groups": refs, "pairs": pairs},
+              "sharding": shard, "seconds": time.perf_counter() - t_phase}
+    say(f"phase 7f reference engine: ref_scan == plain on every field over "
+        f"{len(jobs)} cut groups ({', '.join(cases)}; plain "
+        f"{cut_cpu_s:.1f} CPU-s, {cut_wall:.1f} s; {flips} flips); "
+        f"run_ref_many == run_many on every field at full size "
+        f"({', '.join(calls)}), {counts['ref_scan']} ref_scan launches in "
+        f"{full_wall:.2f} s")
+    for pr in pairs:
+        r, f = pr["ref"], pr["slot_scan"]
+        say(f"  {r['tag']} group {r['batch']} x {r['n']}: ref_scan "
+            f"{r['ns_per_slot']:.1f} ns per slot over {r['slots']} slots "
+            f"({r['ms']:.2f} ms), slot_scan {f['ns_per_slot']:.1f} over "
+            f"{f['slots']} ({f['ms']:.2f} ms)")
+    say(f"phase 7f ref_scan: {ms:.3f} ms per call on the {big['tag']} "
+        f"group ({B} x {N}, {p.slots} slots), device "
+        f"{dev_fields['device_ms']:.3f} ms per launch "
+        f"({dev_fields['device_ms_method']}), plain {plain_ms:.1f} ms over "
+        f"{cut.slots} slots, bound {bms:.5f} ms by {bby}")
+    say(f"phase 7f sharding on {shard['cards']} card(s): "
+        + "; ".join(f"'{m}' grid ({n_groups} groups) == unsharded, passes "
+                    f"{shard[m]}" for m in modes)
+        + ("" if shard["cards"] > 1 else
+           "; one card here, so 'auto' (across cards) did not run")
+        + f"; phase 7f {detail['seconds']:.1f} s")
+    return entry, detail
+
+
 def close(got, want, atol, rtol):
     """Elementwise ``|got - want| <= atol + rtol * |want|`` (numpy's
     allclose) on float32 copies; returns (ok, max abs err)."""
@@ -2794,6 +3125,10 @@ def main(argv=None):
             traces, timescale, main_inputs, report["stream"], cpu_search)
         report["service"] = phase_service(np, torch, ops, emu, service,
                                           grid, grid_serial)
+        ref_entry, report["ref_engine"] = phase_ref(
+            np, torch, ops, ref, emu, smcprog, timescale, traces, faults,
+            bloom_mod, main_inputs, grid, grid_serial)
+        kernels.append(ref_entry)
 
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)

@@ -32,10 +32,22 @@ Each group is a :class:`~repro_torch.core.executor.GroupTask` planned by
 :func:`prepare_tasks` on the caller's thread; the groups of one call run
 overlapped across the ``core.executor`` workers, each on a CUDA stream of
 its own, or in order under ``serial=True``, with equal results. A group's
-launch plan (its scan parameters, the ``slot_scan`` instantiation, a staged
-program's packed table and cost) comes from an LRU keyed by
+launch plan (its scan parameters, a staged program's packed table and
+cost) comes from an LRU keyed by the engine, the shard count and
 :func:`compile_key`, the counterpart of the reference's executable cache,
 with the same counters (:func:`cache_stats`).
+
+:func:`run_ref` / :func:`run_ref_many` run the reference's
+pre-optimization engine over the same groups: one launch of the
+``ref_scan`` kernel a group (the plain ``ref_scan_ref`` on the CPU), the
+uniform ``2 * bucket + 4`` budget, the Bloom probe inside the slot. They
+exist to hold the fast engine to it (``run == run_ref``) and to measure the
+fast engine's speedup.
+
+:func:`set_sharding` splits a group's padded batch over the local devices
+(:func:`local_devices`): each shard's rows run their launches on their own
+card, and the results are gathered back on the group's device within the
+group's task. Stream groups are never sharded.
 
 :func:`run_stream` / :func:`run_stream_many` take traces too long to
 materialize, in constant-memory windows (the section at the end): one
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 import time
 from typing import List, Optional, Sequence, Union
@@ -71,13 +84,14 @@ from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import FP, FRONTIER_UPTO
-from repro_torch.kernels.slot_scan import ScanParams, instantiation
+from repro_torch.kernels.slot_scan import ScanParams
 
 __all__ = ["BIG", "FP", "EmulatorState", "Trace", "pad_trace",
            "slot_budget", "group_key", "compile_key", "stream_compile_key",
            "cache_stats", "cache_clear", "set_cache_capacity",
-           "resolve_device", "prepare_tasks",
-           "run", "run_many", "run_policies", "StreamState",
+           "set_sharding", "local_devices", "resolve_device",
+           "prepare_tasks", "run", "run_many", "run_policies", "run_ref",
+           "run_ref_many", "StreamState",
            "DEFAULT_STREAM_CHUNK", "DEFAULT_STREAM_DEP", "stream_halo",
            "stream_slot_budget", "shift_window", "prepare_stream_tasks",
            "run_stream", "run_stream_many"]
@@ -325,12 +339,13 @@ def compile_key(bucket: int, batch: int, sys: SystemConfig, mode: str,
 # The plan cache, the counterpart of the reference's executable LRU
 # (``REPRO_EMU_CACHE_CAP``, :func:`set_cache_capacity`). The port builds one
 # kernel library and has no per-key executable, so an entry is a group's
-# launch plan: its ScanParams, the slot_scan instantiation it runs, and a
-# staged program's packed table and cost pair. A plan is host data only: no
-# device tensor, so a cached entry is never ordered against a worker's CUDA
-# stream. prepare_tasks / prepare_stream_tasks look plans up on the
-# caller's thread, in group order, so the counters settle as the
-# reference's do.
+# launch plan: its ScanParams and a staged program's packed table and cost
+# pair, keyed as the reference's executables: a batch group by ("fast" or
+# "ref", its shard count, its compile key), a stream group by its stream
+# key. A plan is host data only: no device tensor, so a cached entry is
+# never ordered against a worker's CUDA stream. prepare_tasks /
+# prepare_stream_tasks look plans up on the caller's thread, in group
+# order, so the counters settle as the reference's do.
 # ---------------------------------------------------------------------------
 
 _PLAN_CACHE: "collections.OrderedDict[tuple, _Plan]" = \
@@ -347,7 +362,6 @@ class _Plan:
     staged program's table and a staged or legacy group's cost pair are
     here."""
     params: ScanParams            # with para_rand off: see scan_params
-    instantiation: str            # slot_scan's "fast" or "wide"
     table: Optional[np.ndarray]   # a staged program, packed [lb + 1, 4]
     cost: Optional[tuple]         # (counter_inc, smc_latency_proc)
 
@@ -377,7 +391,7 @@ def _build_plan(sys: SystemConfig, mode: str, batch: int, n: int,
             table.setflags(write=False)
             para = sys.policy.uses(smcprog.OP_PARA_RAND)
     p = _scan_params(sys, mode, batch, n, slots, lb or 0, use_weak, para)
-    return _Plan(p, instantiation(p), table, cost)
+    return _Plan(p, table, cost)
 
 
 def _plan(key: tuple, build) -> _Plan:
@@ -441,6 +455,101 @@ def set_cache_capacity(n: int) -> int:
             _PLAN_CACHE.popitem(last=False)
             _CACHE_STATS["evictions"] += 1
     return old
+
+
+# ---------------------------------------------------------------------------
+# Batch-axis sharding (the reference's set_sharding): a group's padded rows
+# split evenly over the local devices of its device type, each shard's
+# launches on its own card, the results gathered back on the group's device
+# inside the group's one task.
+#   'auto'  — shard when more than one device divides the padded batch
+#   'off'   — never shard
+#   'force' — always take the shard path, over one device if that is all
+#             there is (the CPU has one); equal results
+# ---------------------------------------------------------------------------
+
+_SHARD_MODES = ("auto", "off", "force")
+_SHARD_MODE = os.environ.get("REPRO_EXEC_SHARD", "auto")
+
+
+def set_sharding(mode: str) -> str:
+    """Set the batch-axis sharding mode ('auto' | 'off' | 'force');
+    returns the previous mode. Sharded and unsharded plans live under
+    distinct cache keys."""
+    global _SHARD_MODE
+    if mode not in _SHARD_MODES:
+        raise ValueError(
+            f"sharding mode must be one of {_SHARD_MODES}, got {mode!r}")
+    old, _SHARD_MODE = _SHARD_MODE, mode
+    return old
+
+
+def local_devices(device_type: str = "cuda") -> List[torch.device]:
+    """The devices a group of ``device_type`` may shard over: every card
+    (``cuda:0`` .. ``cuda:n-1``), or the one CPU."""
+    if device_type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def _shard_count(batch: int, device_type: str = "cuda") -> int:
+    """Shards for a padded batch of ``batch`` rows: 0 = unsharded; >= 1 =
+    that many devices (1 only under 'force'), the largest power of two
+    that divides the batch among the local devices."""
+    if _SHARD_MODE == "off":
+        return 0
+    ndev = len(local_devices(device_type))
+    n = 1
+    while n * 2 <= ndev and batch % (n * 2) == 0:
+        n *= 2
+    if n == 1 and _SHARD_MODE != "force":
+        return 0
+    return n
+
+
+def _on(dev: torch.device) -> torch.device:
+    """``dev`` with its index (the current card for a bare ``cuda``)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _sharded(launch, devices: List[torch.device], kind, bank, row, delta,
+             dep, bf, tables, costs, p: ScanParams) -> dict:
+    """``launch`` over ``len(devices)`` equal slices of the group's rows,
+    slice i on ``devices[i]``: its trace rows, its rows of stacked Bloom
+    words (a shared filter goes to every shard), tables and costs. A slice
+    on another card runs there on this thread's worker stream for that
+    card (copies order themselves against both cards' current streams);
+    the outputs return to the group's device and concatenate in row
+    order."""
+    home = _on(kind.device)
+    rows = p.batch // len(devices)
+    ps = dataclasses.replace(p, batch=rows)
+
+    def shard(d, sl):
+        def part(t):
+            return None if t is None else t[sl].to(d, non_blocking=True)
+        sbf = None
+        if bf is not None:
+            words = bf[0] if bf[0].shape[0] == 1 else bf[0][sl]
+            sbf = (words.to(d, non_blocking=True),) + tuple(bf[1:])
+        return launch(*(part(t) for t in (kind, bank, row, delta, dep)),
+                      sbf, part(tables), part(costs), ps)
+
+    outs = []
+    for i, d in enumerate(devices):
+        sl = slice(i * rows, (i + 1) * rows)
+        if _on(d) == home:
+            outs.append(shard(d, sl))
+            continue
+        # the copies in and out order against this stream on card d
+        with torch.cuda.device(d), torch.cuda.stream(
+                executor._worker_stream(_on(d))):
+            outs.append({k: v.to(home, non_blocking=True)
+                         for k, v in shard(d, sl).items()})
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def _finalize(out_row: dict, padded: Trace, sys: SystemConfig,
@@ -523,19 +632,20 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
 def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
                   mode: Union[str, Sequence[str]], blooms,
                   results: List[Optional[dict]], policies=None,
-                  policy_costs=None, device=None
+                  policy_costs=None, device=None, ref: bool = False
                   ) -> List[executor.GroupTask]:
-    """Plan one :func:`run_many` call into
+    """Plan one :func:`run_many` call (``ref``: :func:`run_ref_many`) into
     :class:`~repro_torch.core.executor.GroupTask`s without running them.
 
     Grouping (length bucket, normalized mode, policy-table bucket), slot
-    budgets, the plan-cache lookups (in group order, so that
+    budgets, shard counts, the plan-cache lookups (in group order, so that
     :func:`cache_stats` settles deterministically) and the kernel
     library's build happen here, on the caller's thread; each task's
     ``pack`` pads, stacks and uploads its group, its ``fn`` launches
-    ``bloom_probe`` (with a filter) and ``slot_scan``, and its
-    ``finalize`` writes the group's records into its own ``results`` slots
-    (``results`` is a list of ``len(traces)`` Nones)."""
+    ``bloom_probe`` (with a filter) and ``slot_scan``, or ``ref_scan``,
+    on each shard, and its ``finalize`` writes the group's records into its
+    own ``results`` slots (``results`` is a list of ``len(traces)``
+    Nones)."""
     dev = resolve_device(device)
     traces = list(traces)
     n = len(traces)
@@ -553,15 +663,20 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
 
     tasks: List[executor.GroupTask] = []
     for (bucket, gmode, lb), idxs in groups.items():
-        slots = slot_budget(bucket, max(traces[i].n_real for i in idxs))
+        slots = 2 * bucket + 4 if ref else slot_budget(
+            bucket, max(traces[i].n_real for i in idxs))
         bb = _batch_bucket(len(idxs))
         gsys = sys if lb is None else _policy_rt_sys(sys)
-        plan = _plan(
-            compile_key(bucket, len(idxs), gsys, gmode, blooms, slots, lb),
-            lambda: _build_plan(gsys, gmode, bb, bucket, slots, lb,
-                                blooms is not None))
+        nshards = _shard_count(bb, dev.type)
+        key = compile_key(bucket, len(idxs), gsys, gmode, blooms,
+                          None if ref else slots, lb)
+        plan = _plan(("ref" if ref else "fast", nshards, key),
+                     lambda: _build_plan(gsys, gmode, bb, bucket, slots, lb,
+                                         blooms is not None))
+        devices = local_devices(dev.type)[:nshards] if nshards else None
 
-        def pack(idxs=idxs, bucket=bucket, plan=plan, bb=bb):
+        def pack(idxs=idxs, bucket=bucket, plan=plan, bb=bb,
+                 devices=devices):
             padded = [pad_trace(traces[i], bucket) for i in idxs]
             if bb > len(idxs):  # all-NOP filler rows, discarded below
                 filler = Trace.of(np.full(bucket, NOP), np.zeros(bucket),
@@ -576,8 +691,9 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
             bf = _group_blooms(blooms, idxs, bb, dev)
             tables, costs, para = _group_tables(sys, plan, idxs, pol, bb,
                                                 dev)
-            return arrays + (bf, tables, costs,
-                             plan.scan_params(bb, para)), padded
+            launch = _launch_ref if ref else _launch_fast
+            return (launch, devices) + arrays + (
+                bf, tables, costs, plan.scan_params(bb, para)), padded
 
         def finalize(out, padded, idxs=idxs):
             for j, i in enumerate(idxs):
@@ -592,13 +708,28 @@ def prepare_tasks(traces: Sequence[Trace], sys: SystemConfig,
     return tasks
 
 
-def _launch_group(kind, bank, row, delta, dep, bf, tables, costs,
-                  p: ScanParams) -> dict:
-    """One group's launches on the current stream: the Bloom probe of
-    every request (with a filter), then the slot scan."""
+def _launch_group(launch, devices, *args) -> dict:
+    """One group's launches: ``launch(*args)`` on the current stream, or
+    over the shard ``devices``."""
+    if devices is None:
+        return launch(*args)
+    return _sharded(launch, devices, *args)
+
+
+def _launch_fast(kind, bank, row, delta, dep, bf, tables, costs,
+                 p: ScanParams) -> dict:
+    """The fast engine's launches: the Bloom probe of every request (with
+    a filter), then the slot scan."""
     weak = None if bf is None else _probe(bf, bank, row, p.n_rows)
     return ops.slot_scan(kind, bank, row, delta, dep, weak, tables, costs,
                          p)
+
+
+def _launch_ref(kind, bank, row, delta, dep, bf, tables, costs,
+                p: ScanParams) -> dict:
+    """The reference engine's launch: ``ref_scan``, which probes the Bloom
+    filter inside the slot."""
+    return ops.ref_scan(kind, bank, row, delta, dep, bf, tables, costs, p)
 
 
 def _execute_entry_point(tasks, serial) -> None:
@@ -618,7 +749,8 @@ def _execute_entry_point(tasks, serial) -> None:
 def _run_grouped(traces: Sequence[Trace], sys: SystemConfig,
                  mode: Union[str, Sequence[str]], blooms,
                  serial: Optional[bool] = None, policies=None,
-                 policy_costs=None, device=None) -> List[dict]:
+                 policy_costs=None, device=None,
+                 ref: bool = False) -> List[dict]:
     """Plan into group tasks, then execute them: overlapped across the
     executor's workers (each on its own CUDA stream) when more than one
     group is present, or in order on the caller's thread under
@@ -627,7 +759,7 @@ def _run_grouped(traces: Sequence[Trace], sys: SystemConfig,
     results: List[Optional[dict]] = [None] * len(traces)
     tasks = prepare_tasks(traces, sys, mode, blooms, results,
                           policies=policies, policy_costs=policy_costs,
-                          device=device)
+                          device=device, ref=ref)
     _execute_entry_point(tasks, serial)
     return results
 
@@ -673,6 +805,27 @@ def run(trace: Trace, sys: SystemConfig, mode: str = "ts",
     """One trace, one config, one mode (a batch of one).
     ``bloom``: (words_u32, k, m_bits)."""
     return run_many([trace], sys, mode=mode, blooms=bloom, device=device)[0]
+
+
+def run_ref_many(traces: Sequence[Trace], sys: SystemConfig,
+                 mode: Union[str, Sequence[str]] = "ts", blooms=None,
+                 serial: Optional[bool] = None, policies=None,
+                 policy_costs=None, device=None) -> List[dict]:
+    """The reference's pre-optimization engine over :func:`run_many`'s
+    groups and arguments: one ``ref_scan`` launch a group over the uniform
+    ``2 * bucket + 4`` slots, the Bloom probe inside the slot. Its records
+    equal :func:`run_many`'s; it exists to hold the fast engine to that
+    and to time it."""
+    return _run_grouped(traces, sys, mode, blooms, serial=serial,
+                        policies=policies, policy_costs=policy_costs,
+                        device=device, ref=True)
+
+
+def run_ref(trace: Trace, sys: SystemConfig, mode: str = "ts",
+            bloom: Optional[tuple] = None, device=None) -> dict:
+    """Single-trace wrapper over :func:`run_ref_many`."""
+    return run_ref_many([trace], sys, mode=mode, blooms=bloom,
+                        device=device)[0]
 
 
 # ---------------------------------------------------------------------------

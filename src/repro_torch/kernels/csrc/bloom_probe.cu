@@ -25,27 +25,13 @@
 // once per process.
 #include <cuda_runtime.h>
 
+#include "bloom_hash.cuh"
 #include "common.cuh"
 
 namespace {
 
-__device__ const uint32_t kMuls[8] = {0x85EBCA6Bu, 0xC2B2AE35u, 0x27D4EB2Fu,
-                                      0x165667B1u, 0x9E3779B1u, 0x85EBCA77u,
-                                      0xC2B2AE3Du, 0x27D4EB2Du};
-
 constexpr int kThreads = 512;
 constexpr int kBlocksPerSm = 4;
-
-__device__ __forceinline__ uint32_t bloom_index(uint32_t key, int i,
-                                                uint32_t mask) {
-  uint32_t x = key;
-  x ^= x >> 16;
-  x *= kMuls[i];
-  x ^= x >> 13;
-  x *= 0x2B2AE3D5u;
-  x ^= x >> 16;
-  return x & mask;
-}
 
 // NK keys at once: every index first, then every word read, then the
 // tests, so that all NK * K reads are in flight together.

@@ -36,16 +36,17 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bloom_probe import bloom_probe_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import policy_vm_cuda
+from repro_torch.kernels.ref_scan import ref_scan_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import (ScanParams, slot_scan_cuda,
                                           slot_scan_window_cuda)
 
 KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "slot_scan_window",
-           "flash_attention", "rowclone_copy")
+           "ref_scan", "flash_attention", "rowclone_copy")
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu",
+_SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu", "ref_scan.cu",
             "flash_attention.cu", "rowclone_copy.cu")
-_HEADERS = ("common.cuh", "policy_vm.cuh", "threefry.cuh")
+_HEADERS = ("bloom_hash.cuh", "common.cuh", "policy_vm.cuh", "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -212,6 +213,11 @@ def library() -> ctypes.CDLL:
             lib.slot_scan_window_launch.argtypes = [
                 ctypes.POINTER(i), i, ctypes.POINTER(vp), i, vp, vp]
             lib.slot_scan_num_params.argtypes = []
+            lib.ref_scan_launch.argtypes = [ctypes.POINTER(i)] + [vp] * 6 \
+                + [i] * 4 + [vp] * 9
+            lib.ref_scan_row_ints.argtypes = [i, i, i]
+            lib.ref_scan_row_ints.restype = ll
+            lib.ref_scan_num_params.argtypes = []
             lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 7 + [
                 ctypes.c_float, vp]
             lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
@@ -219,13 +225,15 @@ def library() -> ctypes.CDLL:
                        lib.policy_vm_wide_launch, lib.slot_scan_launch,
                        lib.slot_scan_wide_launch,
                        lib.slot_scan_window_launch, lib.slot_scan_num_params,
+                       lib.ref_scan_launch, lib.ref_scan_num_params,
                        lib.flash_attention_launch, lib.rowclone_copy_launch):
                 fn.restype = i
-            n = lib.slot_scan_num_params()
-            if n != len(ScanParams.__dataclass_fields__):
-                raise RuntimeError(f"slot_scan.cu takes {n} params, "
-                                   f"ScanParams has "
-                                   f"{len(ScanParams.__dataclass_fields__)}")
+            for src, n in (("slot_scan.cu", lib.slot_scan_num_params()),
+                           ("ref_scan.cu", lib.ref_scan_num_params())):
+                if n != len(ScanParams.__dataclass_fields__):
+                    raise RuntimeError(
+                        f"{src} takes {n} params, ScanParams has "
+                        f"{len(ScanParams.__dataclass_fields__)}")
             _LIB = lib
         return _LIB
 
@@ -270,6 +278,16 @@ def slot_scan_window(st, kind, bank, row, delta, dep, weak, tables, costs,
                                         weak, tables, costs, p, final)
     return slot_scan_window_cuda(st, kind, bank, row, delta, dep, weak,
                                  tables, costs, p, final)
+
+
+def ref_scan(kind, bank, row, delta, dep, bloom, tables, costs,
+             p: ScanParams) -> dict:
+    """One batch group through the reference engine's slot scan (see
+    ``kernels/ref_scan.py``); ``bloom`` None or (words, k, m_bits)."""
+    if _route("ref_scan", kind) == "cpu":
+        return ref.ref_scan_ref(kind, bank, row, delta, dep, bloom, tables,
+                                costs, p)
+    return ref_scan_cuda(kind, bank, row, delta, dep, bloom, tables, costs, p)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

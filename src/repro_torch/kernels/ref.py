@@ -5,7 +5,8 @@ and are what the emulator and the LM use for CPU tensors. :func:`slot_scan_ref` 
 a batched loop over slots that mirrors the reference slot body
 (``repro.core.emulator._make_slot_body``) line for line, over a leading
 batch axis of trace rows, carrying an
-:class:`~repro_torch.core.state.EmulatorState`.
+:class:`~repro_torch.core.state.EmulatorState`; :func:`ref_scan_ref` mirrors
+the reference's pre-optimization engine (``_run_core_ref``) the same way.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.core import dram, smcprog
 from repro_torch.core.bloom import bloom_probe_torch
-from repro_torch.core.dram import NOP, WRITE, at_index
+from repro_torch.core.dram import NOP, WRITE, at_index, set_index
 from repro_torch.core.faults import (FaultModel, apply_slot,
                                      fault_result_fields, init_fault_state,
                                      para_bits)
@@ -296,25 +297,47 @@ def _policy_env(q_t, q_bank, q_row, is_write, visible, hit_now, ready,
     return torch.stack([r.to(torch.int32) for r in rows], dim=1)
 
 
+def _decide(st: EmulatorState, kind, qidx, q_t, q_bank, q_row, visible,
+            tables: Optional[torch.Tensor], p: ScanParams, fm: bool, kp,
+            para: bool):
+    """The slot's scheduling decision, shared by both engines' slot bodies
+    as the reference shares ``_policy_env`` and ``select_slot_table``: the
+    queue lane ``[B]`` to serve and the policy's mitigate flag for it (None
+    for the legacy flag). ``fm``: a fault model (``hammer_ct`` loads its
+    counters); ``para``: ``para_rand`` draws under ``kp``, else loads 0."""
+    hit_now = torch.gather(st.bank["open_row"], 1, q_bank.long()) == q_row
+    if tables is not None:
+        is_write = torch.gather(kind, 1, qidx) == WRITE
+        zero = torch.zeros_like(q_t)
+        hct = torch.gather(st.faults["hct"], 1, q_bank.long()) if fm \
+            else zero
+        pr = para_bits(kp, q_bank, q_row, st.dram_now) if para else zero
+        envm = _policy_env(q_t, q_bank, q_row, is_write, visible,
+                           hit_now, st.bank["ready"], st.dram_now,
+                           st.last_bank, p.n_banks, hct, pr)
+        out = smcprog.evaluate_table(tables, envm)
+        qslot = smcprog.select_slot_table(out[:, 0], out[:, 1], visible)
+        return qslot, at_index(out[:, 2], qslot) != 0
+    key_all = torch.where(visible, q_t, BIG)
+    key_hit = torch.where(visible & hit_now, q_t, BIG)
+    slot_hit = torch.argmin(key_hit, dim=1)
+    slot_old = torch.argmin(key_all, dim=1)
+    use_hit = (visible & hit_now).any(1) & bool(p.frfcfs)
+    return torch.where(use_hit, slot_hit, slot_old), None
+
+
 # the issue frontier's advances per slot (the reference's _FRONTIER_UPTO):
 # a stream window's slot runs only while ptr <= n - FRONTIER_UPTO
 FRONTIER_UPTO = 4
 
 
-def _slot_body(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
-               tables: Optional[torch.Tensor], costs: torch.Tensor,
-               p: ScanParams):
-    """The per-slot transition over one group's trace arrays, as a
-    function ``step(st, live)`` that advances ``st`` in place by one slot
-    (``repro.core.emulator._make_slot_body``). ``live`` is None, or the
-    stream window's freeze gate ``[B]``, evaluated at the start of the
-    slot: it ANDs into every frontier advance, into the service and into
-    the idle hop, so a gated-off row's slot is the identity. With a fault
-    model (``p.victim_slots > 0``) every served slot advances its carry
-    (``core.faults.apply_slot``) after the DRAM service. Returns ``step``
-    and the fault model (None without one)."""
-    N = kind.shape[1]
-    W = p.window
+def _group_consts(tables: Optional[torch.Tensor], costs: torch.Tensor,
+                  p: ScanParams):
+    """A group's constants, shared by both engines' slot bodies: the DRAM
+    timing, the decision's SMC counter increment, MC issue interval and
+    visibility slack ``[B]`` (from the cost pairs and the mode), the
+    divisor of the tick conversion, the fault model and its stream keys
+    (None without one), the PARA key, and whether ``para_rand`` draws."""
     t = dram.Timing(tRCD=p.tRCD, tRCD_reduced=p.tRCD_reduced, tCL=p.tCL,
                     tRP=p.tRP, tRAS=p.tRAS, tWR=p.tWR, tBL=p.tBL,
                     tRFC=p.tRFC, tREFI=p.tREFI, tRC_CLONE=p.tRC_CLONE)
@@ -339,6 +362,25 @@ def _slot_body(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
     # load it; elsewhere it loads 0, as in every kernel instantiation
     para = bool(p.faults) and tables is not None and bool(
         (tables[:, 1:, 0] == smcprog.OP_PARA_RAND).any())
+    return t, counter_inc, mc_issue, vis_slack, den, fm, keys, kp, para
+
+
+def _slot_body(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
+               tables: Optional[torch.Tensor], costs: torch.Tensor,
+               p: ScanParams):
+    """The per-slot transition over one group's trace arrays, as a
+    function ``step(st, live)`` that advances ``st`` in place by one slot
+    (``repro.core.emulator._make_slot_body``). ``live`` is None, or the
+    stream window's freeze gate ``[B]``, evaluated at the start of the
+    slot: it ANDs into every frontier advance, into the service and into
+    the idle hop, so a gated-off row's slot is the identity. With a fault
+    model (``p.victim_slots > 0``) every served slot advances its carry
+    (``core.faults.apply_slot``) after the DRAM service. Returns ``step``
+    and the fault model (None without one)."""
+    N = kind.shape[1]
+    W = p.window
+    t, counter_inc, mc_issue, vis_slack, den, fm, keys, kp, para = \
+        _group_consts(tables, costs, p)
 
     def step(st: EmulatorState, live: Optional[torch.Tensor]) -> None:
         _issue_frontier(st, kind, delta, dep, W, upto=FRONTIER_UPTO,
@@ -358,27 +400,8 @@ def _slot_body(kind, bank, row, delta, dep, weak: Optional[torch.Tensor],
             do = do & live
 
         # ---- scheduling decision (two-level argmin, ties to lane 0..)
-        hit_now = torch.gather(st.bank["open_row"], 1, q_bank.long()) == q_row
-        mit = None
-        if tables is not None:
-            is_write = torch.gather(kind, 1, qidx) == WRITE
-            zero = torch.zeros_like(q_t)
-            hct = zero if fm is None else torch.gather(
-                st.faults["hct"], 1, q_bank.long())
-            pr = para_bits(kp, q_bank, q_row, st.dram_now) if para else zero
-            envm = _policy_env(q_t, q_bank, q_row, is_write, visible,
-                               hit_now, st.bank["ready"], st.dram_now,
-                               st.last_bank, p.n_banks, hct, pr)
-            out = smcprog.evaluate_table(tables, envm)
-            qslot = smcprog.select_slot_table(out[:, 0], out[:, 1], visible)
-            mit = at_index(out[:, 2], qslot) != 0
-        else:
-            key_all = torch.where(visible, q_t, BIG)
-            key_hit = torch.where(visible & hit_now, q_t, BIG)
-            slot_hit = torch.argmin(key_hit, dim=1)
-            slot_old = torch.argmin(key_all, dim=1)
-            use_hit = (visible & hit_now).any(1) & bool(p.frfcfs)
-            qslot = torch.where(use_hit, slot_hit, slot_old)
+        qslot, mit = _decide(st, kind, qidx, q_t, q_bank, q_row, visible,
+                             tables, p, fm is not None, kp, para)
         pick = at_index(qidx, qslot)
 
         # ---- DRAM service (command-batch executor)
@@ -503,3 +526,150 @@ def slot_scan_window_ref(st: EmulatorState, kind, bank, row, delta, dep,
 def _clone(v):
     return {k: x.clone() for k, x in v.items()} if isinstance(v, dict) \
         else v.clone()
+
+
+# ---------------------------------------------------------------------------
+# The reference engine (``repro.core.emulator._run_core_ref``): the
+# pre-optimization slot scan behind run_ref / run_ref_many, the plain version
+# of csrc/ref_scan.cu. Every state update is a full-length select, as the
+# reference writes it; the Bloom probe of the picked request runs inside the
+# slot; the budget is the uniform 2 * n + 4 (``p.slots``).
+# ---------------------------------------------------------------------------
+
+
+def _issue_frontier_ref(st: EmulatorState, kind, delta, dep, W: int,
+                        upto: int) -> None:
+    """``_issue_frontier_ref``: up to ``upto`` in-order advances, each
+    update a full-length select over the row's arrays; updates ``st`` in
+    place."""
+    N = kind.shape[1]
+    for _ in range(upto):
+        j = st.ptr
+        jc = j.clamp(0, N - 1)
+        prev_issue = torch.where(
+            j > 0, at_index(st.t_issue, (j - 1).clamp(0, N - 1)), 0)
+        base = prev_issue + at_index(delta, jc)
+        wj = j - W
+        tw = at_index(st.t_resp, wj.clamp(0, N - 1))
+        win_known = (wj < 0) | (tw < BIG)
+        win_t = torch.where(wj >= 0, tw + 1, 0)
+        dpj = at_index(dep, jc)
+        dj = j - dpj
+        dep_on = dpj > 0
+        td = at_index(st.t_resp, dj.clamp(0, N - 1))
+        dep_known = ~dep_on | (dj < 0) | (td < BIG)
+        dep_t = torch.where(dep_on & (dj >= 0), td + 1, 0)
+        free = st.queue < 0
+        slot = torch.argmax(free.int(), dim=1)
+        is_nop = at_index(kind, jc) == NOP
+        can = (j < N) & win_known & dep_known & (free.any(1) | is_nop)
+        t_new = torch.maximum(torch.maximum(base, win_t), dep_t)
+        st.t_issue = torch.where(can.unsqueeze(1),
+                                 set_index(st.t_issue, jc, t_new), st.t_issue)
+        st.t_resp = torch.where((can & is_nop).unsqueeze(1),
+                                set_index(st.t_resp, jc, t_new), st.t_resp)
+        st.queue = torch.where((can & ~is_nop).unsqueeze(1),
+                               set_index(st.queue, slot, jc), st.queue)
+        st.ptr = torch.where(can, st.ptr + 1, st.ptr)
+
+
+def ref_scan_ref(kind, bank, row, delta, dep, bloom: Optional[tuple],
+                 tables: Optional[torch.Tensor], costs: torch.Tensor,
+                 p: ScanParams) -> dict:
+    """Plain version of ``ref_scan_cuda``: trace arrays ``[B, N]`` int32,
+    ``bloom`` None or (words ``[1 or B, W]`` int32, k, m_bits), ``tables``
+    ``[B, L + 1, 4]`` int32 or None, ``costs`` ``[B, 2]`` int32. A fresh
+    state through ``p.slots`` slots of the reference's body, then the
+    trailing frontier pass (only its t_issue kept); the outputs of
+    :func:`slot_scan_ref`."""
+    B, N = kind.shape
+    dev = kind.device
+    W = p.window
+    t, counter_inc, mc_issue, vis_slack, den, fm, keys, kp, para = \
+        _group_consts(tables, costs, p)
+    st = EmulatorState.fresh(N, p.n_banks, p.q, batch=B, device=dev)
+    if fm is not None:
+        st.faults = init_fault_state(fm, p.n_banks, B, dev)
+    for _ in range(p.slots):
+        _issue_frontier_ref(st, kind, delta, dep, W, upto=FRONTIER_UPTO)
+
+        qvalid = st.queue >= 0
+        qidx = st.queue.clamp(0, N - 1).long()
+        q_t = torch.where(qvalid, torch.gather(st.t_issue, 1, qidx), BIG)
+        q_bank = torch.gather(bank, 1, qidx)
+        q_row = torch.gather(row, 1, qidx)
+
+        cutoff = st.mc_release + vis_slack
+        visible = qvalid & (q_t <= cutoff.unsqueeze(1))
+        do = visible.any(1)
+
+        qslot, mit = _decide(st, kind, qidx, q_t, q_bank, q_row, visible,
+                             tables, p, fm is not None, kp, para)
+        pick = at_index(qidx, qslot)
+
+        decision_t = torch.maximum(at_index(st.t_issue, pick), st.mc_release)
+        dram_req_t = torch.maximum(st.dram_now,
+                                   _mul_div(decision_t, FP, den))
+        trcd_eff = torch.full_like(decision_t, t.tRCD)
+        b = at_index(bank, pick)
+        r = at_index(row, pick)
+        if bloom is not None:
+            words, k, m_bits = bloom
+            gid = b.long() * p.n_rows + r.long()
+            weakp = bloom_probe_torch(words, m_bits, k, gid.unsqueeze(1))[:, 0]
+            trcd_eff = torch.where(weakp, t.tRCD, t.tRCD_reduced).int()
+        nbs, t_done, hit = dram.service_request(
+            st.bank, t, at_index(kind, pick), b, r, dram_req_t, trcd_eff)
+
+        resp_t = _mul_div(t_done, p.scale_num, FP) + p.mc_lat
+        resp_t = torch.maximum(resp_t, decision_t + mc_issue)
+
+        old_refs = st.bank["refs_done"]
+        st.bank = {k: torch.where(do.view(-1, *([1] * (v.dim() - 1))),
+                                  nbs[k], v)
+                   for k, v in st.bank.items()}
+        if fm is not None:
+            st.faults, extra = apply_slot(
+                fm, p.n_rows, p.tREFI, p.mit_ticks, st.faults, do=do,
+                hit=hit, bank=b, row=r, kind=at_index(kind, pick),
+                t_start=dram_req_t,
+                refreshed=do & (nbs["refs_done"] != old_refs),
+                mitigate=mit, keys=keys)
+            st.bank["ready"] = set_index(st.bank["ready"], b,
+                                         at_index(st.bank["ready"], b)
+                                         + extra)
+        st.t_resp = torch.where(do.unsqueeze(1),
+                                set_index(st.t_resp, pick, resp_t), st.t_resp)
+        st.queue = torch.where(do.unsqueeze(1),
+                               set_index(st.queue, qslot,
+                                         torch.full_like(qslot, -1)),
+                               st.queue)
+        st.dram_now = torch.where(do, torch.maximum(st.dram_now, dram_req_t),
+                                  st.dram_now)
+        st.hits = st.hits + (do & hit).int()
+        st.served_n = st.served_n + do.int()
+        st.smc_fpga_cycles = st.smc_fpga_cycles + torch.where(
+            do, counter_inc, 0)
+        st.last_bank = torch.where(do, b, st.last_bank)
+        # the idle hop, never on an empty queue
+        nxt = q_t.amin(1)
+        idle = torch.where(qvalid.any(1),
+                           torch.maximum(st.mc_release,
+                                         torch.clamp(nxt, max=BIG - 1)),
+                           st.mc_release)
+        st.mc_release = torch.where(
+            do, torch.maximum(st.mc_release, decision_t + mc_issue), idle)
+
+    t_resp = st.t_resp.clone()
+    _issue_frontier_ref(st, kind, delta, dep, W, upto=8)
+    valid = kind != NOP
+    last_resp = torch.where(valid & (t_resp < BIG), t_resp, 0).amax(1)
+    last_issue = torch.where(valid, st.t_issue, 0).amax(1)
+    vals = (torch.maximum(last_resp, last_issue), st.hits, st.served_n,
+            st.dram_now, st.smc_fpga_cycles)
+    out = {f: v.to(torch.int32) for f, v in zip(STAT_FIELDS, vals)}
+    out["t_resp"] = t_resp
+    out["t_issue"] = st.t_issue
+    if fm is not None:
+        out.update(fault_result_fields(st.faults))
+    return out

@@ -138,6 +138,17 @@ def _check_inputs(name, kind, bank, row, delta, dep, weak, tables, costs,
                   p: ScanParams) -> None:
     """The checks both entries make of a group's configuration and
     inputs."""
+    check_group(name, kind, bank, row, delta, dep, tables, costs, p)
+    if (weak is not None) != bool(p.use_weak):
+        raise ValueError("slot_scan: weak flags and use_weak disagree")
+    if weak is not None:
+        _check("weak", weak, (p.batch, p.n), torch.int8, kind.device)
+
+
+def check_group(name, kind, bank, row, delta, dep, tables, costs,
+                p: ScanParams) -> None:
+    """The checks every scan kernel's wrapper makes of a group's
+    configuration, trace arrays, policy tables and cost pairs."""
     dev = kind.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -155,10 +166,6 @@ def _check_inputs(name, kind, bank, row, delta, dep, weak, tables, costs,
     for nm, t in (("kind", kind), ("bank", bank), ("row", row),
                   ("delta", delta), ("dep", dep)):
         _check(nm, t, shape, torch.int32, dev)
-    if (weak is not None) != bool(p.use_weak):
-        raise ValueError("slot_scan: weak flags and use_weak disagree")
-    if weak is not None:
-        _check("weak", weak, shape, torch.int8, dev)
     if (tables is not None) != (p.table_len > 0):
         raise ValueError("slot_scan: tables and table_len disagree")
     if tables is not None:

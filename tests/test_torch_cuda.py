@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.core import (emulator, executor, faults, smcprog,
-                              techniques, timescale, traces)
+from repro_torch.core import (bloom as bloom_mod, emulator, executor,
+                              faults, smcprog, techniques, timescale, traces)
 from repro_torch.core.bloom import BloomFilter, words_tensor
 from repro_torch.core.faults import FAULT_LOGS, FAULT_SCALARS, FaultModel
 from repro_torch.core.timescale import JETSON_NANO
@@ -23,6 +23,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import FAST_TABLE as VM_FAST_TABLE
 from repro_torch.kernels.policy_vm import policy_vm_cuda
+from repro_torch.kernels.ref_scan import ref_scan_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
 from repro_torch.kernels.slot_scan import (FAST_BANKS, FAST_Q, FAST_TABLE,
                                            RESP_RING, ScanParams,
@@ -917,6 +918,11 @@ def test_empty_input_launches_and_counts_nothing(cuda_device, name):
         out = flash_attention_cuda(kv[:0], kv, kv, causal=True)
     elif name == "rowclone_copy":
         out = ops.rowclone_copy(torch.zeros((0, 8), device=cuda_device))
+    elif name == "ref_scan":
+        e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
+        costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)
+        out = ops.ref_scan(e, e, e, e, e, None, None, costs,
+                           scan_params(0, 64))["t_resp"]
     elif name == "slot_scan_window":
         e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
         costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)
@@ -931,3 +937,67 @@ def test_empty_input_launches_and_counts_nothing(cuda_device, name):
                             scan_params(0, 64))["t_resp"]
     assert out.numel() == 0
     assert ops.launches()[name] == 0
+
+
+# ---- the reference engine (ref_scan) and sharding on the card
+
+
+def ref_case(name):
+    return chip_smoke.ref_cases(np, emulator, smcprog, timescale, traces,
+                                faults, bloom_mod)[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.REF_CASES)
+def test_ref_scan_matches_plain_on_the_cut_cases(cuda_device, case):
+    """run_ref_many on the card (ref_scan) equals it on the CPU (the plain
+    ref_scan_ref) on every field, and equals run_many on the card."""
+    trs, sys_, kw = ref_case(case)
+    ops.reset_launches()
+    got = emulator.run_ref_many(trs, sys_, device=cuda_device, **kw)
+    counts = ops.launches()
+    assert counts["ref_scan"] > 0 and counts["slot_scan"] == 0
+    want = emulator.run_ref_many(trs, sys_, device="cpu", **kw)
+    chip_smoke.same_records(np, got, want, f"{case}: kernel vs plain")
+    fast = emulator.run_many(trs, sys_, device=cuda_device, **kw)
+    chip_smoke.same_records(np, got, fast, f"{case}: run_ref vs run")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["modes-bloom-shared", "runtime-policies"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharding_on_the_card_equals_unsharded(cuda_device, case, shards,
+                                               monkeypatch):
+    """'force' over the card (one shard), and two shards on the same card
+    (the device lister monkeypatched): run_many and run_ref_many equal
+    their unsharded records."""
+    trs, sys_, kw = ref_case(case)
+    base = [emulator.run_many(trs, sys_, device=cuda_device, **kw),
+            emulator.run_ref_many(trs, sys_, device=cuda_device, **kw)]
+    if shards == 2:
+        monkeypatch.setattr(emulator, "local_devices", lambda device_type: [
+            torch.device("cuda", torch.cuda.current_device())] * 2)
+    old = emulator.set_sharding("force")
+    try:
+        got = [emulator.run_many(trs, sys_, device=cuda_device, **kw),
+               emulator.run_ref_many(trs, sys_, device=cuda_device, **kw)]
+    finally:
+        emulator.set_sharding(old)
+    for a, b, what in zip(got, base, ("run_many", "run_ref_many")):
+        chip_smoke.same_records(np, a, b, f"{case} {what} x{shards}")
+
+
+@pytest.mark.cuda
+def test_ref_scan_cuda_refusals(cuda_device):
+    e = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
+    costs = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    p = scan_params(1, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ref_scan_cuda(e.cpu(), e.cpu(), e.cpu(), e.cpu(), e.cpu(), None,
+                      None, costs.cpu(), p)
+    words = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="use_weak"):
+        ref_scan_cuda(e, e, e, e, e, (words, 2, 128), None, costs, p)
+    pw = dataclasses.replace(p, use_weak=1)
+    with pytest.raises(ValueError, match="m_bits"):
+        ref_scan_cuda(e, e, e, e, e, (words, 2, 256), None, costs, pw)

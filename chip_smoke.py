@@ -128,7 +128,24 @@ Phases, one line each:
    function (``scaled_dot_product_attention``, ``clone``), which the port
    itself never calls (``rowclone_copy`` and ``clone`` timed in turns);
    flash's bound is its 3xTF32 tensor-core bound, printed beside the fp32
-   SIMT bound.
+   SIMT bound;
+13. training (the serving model freed first): (b) qwen2-1.5b at full
+   width and depth, fp32 masters, bf16 compute, remat, AdamW at lr 3e-4
+   with warmup 10, 4 x 2048 ``SyntheticLM`` tokens (S > 1024: the
+   checkpointed query blocks), 12 steps with the last 10 timed (step ms,
+   tokens/s, peak memory, the share of the bf16 dense peak in model
+   FLOPs), one profiled step (busy share, top device ops), microbatches 2
+   against 1, one ``int8_wire`` step, the launch counters reset just
+   before: no kernel launches (the flash kernel has no backward); a
+   batch that does not fit is cut, never width or depth; (c) at
+   ``launch.train``'s small preset, 3 steps + async save + restore + 3
+   against 6 straight, the async save holding step 3 while later steps
+   update in place; (d) ``python -m repro_torch.launch.train`` at the
+   tiny preset, 30 steps with the loss falling, then resumed to 40 from
+   step 25; (a) the small preset's 3 float32 steps against the port's
+   CPU run (a worker process started after (b)) at the CPU tests'
+   tolerances (the masters at a rule of their own, see TRAIN_MASTER_*),
+   and 3 bf16 steps' losses within 1e-2.
 
 Device ms per launch comes from a profiled window of back-to-back calls
 at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
@@ -140,6 +157,8 @@ stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``;
 ``flash_attention`` and ``rowclone_copy``; the policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
+Training launches none of the kernels and adds no entry to the
+``kernels`` line.
 
 Exits non-zero on any failed check. The last two lines are the card's
 name and power limit, then ``{"ok": true, "device": {...}}``. Details go
@@ -149,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import multiprocessing
@@ -164,6 +184,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 DEVICE_WINDOW_MS = 20.0       # least span of a profiled window (device_ms)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 rate (data sheet)
 TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate (data sheet)
+BF16_PEAK_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 REPLACES = {
     "bloom_probe": "src/repro/kernels/bloom_probe.py:21",
     "policy_vm": "src/repro/kernels/policy_vm.py:31",
@@ -273,6 +294,27 @@ FLASH_GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 8, 8, 128),
 # sizes apart, each larger than one block's chunk) and a large ragged copy
 ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192), (36, 65664),
                    (3, 300007)]
+# phase 13, training: (a) launch.train's small preset of TRAIN_ARCH, 8 x
+# 128 tokens, 3 steps on the card and in a CPU process started after
+# (b), float32 compute (TF32 off) at tests/test_torch_train.py's
+# tolerances (loss and grad norm rtol, m and v of each leaf's largest;
+# masters in units of the summed lr: every element within Adam's bound
+# of 2, all but a TRAIN_MASTER_TAIL share within TRAIN_MASTER_LR_TOL:
+# 27 M elements have a longer tail of noise-level gradients than the
+# tests' 0.5 M), bf16 losses within 1e-2; (b) the arch at
+# full width and depth, TRAIN_BATCH x TRAIN_SEQ tokens (S > 1024 takes
+# the checkpointed query blocks), TRAIN_STEPS steps of which the last
+# TRAIN_TIMED are timed, microbatches 2 against 1 at the reference
+# test's loss tolerance (tests/test_train_infra.py)
+TRAIN_ARCH, TRAIN_SEED = "qwen2_1_5b", 0
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ, TRAIN_SMALL_STEPS = 8, 128, 3
+TRAIN_SMALL_OPT = dict(lr=3e-3, warmup=10, total_steps=100)  # launch.train's
+TRAIN_F32_RTOL, TRAIN_MV_TOL, TRAIN_MASTER_LR_TOL = 1e-5, 1e-4, 1e-2
+TRAIN_MASTER_BOUND, TRAIN_MASTER_TAIL = 2.0, 1e-4
+TRAIN_BF16_LOSS_RTOL = 1e-2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_TIMED = 4, 2048, 12, 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
+TRAIN_MB_LOSS_RTOL = 2e-2
 # kernel vs plain on one attention call: the tolerances of
 # tests/test_kernels.py (the kernel's online softmax sums in another order)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -3038,6 +3080,377 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
     return out
 
 
+# ---------------- phase 13: training ----------------
+
+def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS):
+    """``launch.train``'s small preset of TRAIN_ARCH on ``device``: fp32
+    masters drawn on the CPU from TRAIN_SEED (the same on every device),
+    then ``steps`` AdamW steps at the ``compute`` dtype over SyntheticLM
+    batches of TRAIN_SMALL_BATCH x TRAIN_SMALL_SEQ tokens. Returns the
+    state and each step's metrics as floats."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import model_zoo, pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+    cfg = preset_config(TRAIN_ARCH, "small")
+    model = model_zoo.build(cfg, s_max=TRAIN_SMALL_SEQ)
+    params = pdefs.tree_map(lambda t: t.to(device),
+                            model.init(TRAIN_SEED, device="cpu"))
+    state = opt.init_state(params)
+    step = make_train_step(model, opt.AdamWConfig(**TRAIN_SMALL_OPT),
+                           compute_dtype=getattr(torch, compute))
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH,
+                      seed=TRAIN_SEED)
+    metrics = []
+    for i in range(steps):
+        state, m = step(state, src.batch(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def train_cpu_job():
+    """Phase 13 (a)'s CPU side, in a worker process: the small preset's
+    float32 and bf16 runs; the float32 run's master, m and v as numpy.
+    It leaves two cores to the card's launching thread."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.models import pdefs
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+    t0 = time.perf_counter()
+    out = {}
+    state, out["float32"] = small_train_run("cpu", "float32")
+    out["state"] = {name: [t.numpy() for t in
+                           pdefs.tree_leaves(getattr(state, name))]
+                    for name in ("master", "m", "v")}
+    _, out["bfloat16"] = small_train_run("cpu", "bfloat16")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train_small(torch, np, dev, cpu_job):
+    """13 (a): the small preset on the card against the port's CPU run on
+    the same masters and batches: float32 compute (TF32 off) at the CPU
+    tests' tolerances, bf16 losses within TRAIN_BF16_LOSS_RTOL."""
+    from repro_torch.models import pdefs
+    state, card32 = small_train_run(dev, "float32")
+    card = {name: [t.cpu().numpy() for t in
+                   pdefs.tree_leaves(getattr(state, name))]
+            for name in ("master", "m", "v")}
+    del state
+    _, card16 = small_train_run(dev, "bfloat16")
+    cpu = cpu_job.get(timeout=300)
+    sum_lr = sum(m["lr"] for m in card32)
+    for a, b in zip(card32, cpu["float32"]):
+        check(a["lr"] == b["lr"], f"13a: lr {a['lr']} != CPU {b['lr']}")
+        for k in ("loss", "grad_norm"):
+            check(abs(a[k] - b[k]) <= TRAIN_F32_RTOL * abs(b[k]),
+                  f"13a: float32 {k} {a[k]} != CPU {b[k]}")
+    err = {}
+    for name in ("m", "v"):
+        worst = 0.0
+        for g, w in zip(card[name], cpu["state"][name]):
+            scale = max(float(np.abs(w).max()), 1e-30)
+            worst = max(worst, float(np.abs(g - w).max()) / scale)
+        err[name] = worst
+        check(worst <= TRAIN_MV_TOL, f"13a: float32 {name} differs from "
+              f"the CPU run by {worst:.3g} of a leaf's largest")
+    # masters in units of the summed lr: Adam moves an element by at most
+    # ~lr a step whatever its gradient, so an element whose gradient is
+    # at the rounding noise may differ by up to 2 sum(lr); the bulk stays
+    # within TRAIN_MASTER_LR_TOL
+    d = np.concatenate([np.abs(g - w).ravel() for g, w in zip(
+        card["master"], cpu["state"]["master"])]) / sum_lr
+    tail = float((d > TRAIN_MASTER_LR_TOL).mean())
+    err["master"], err["master_tail"] = float(d.max()), tail
+    check(err["master"] <= TRAIN_MASTER_BOUND and tail <= TRAIN_MASTER_TAIL,
+          f"13a: float32 masters differ from the CPU run by up to "
+          f"{err['master']:.3g} of sum(lr), {tail:.3g} of them by more than "
+          f"{TRAIN_MASTER_LR_TOL}")
+    for i, (a, b) in enumerate(zip(card16, cpu["bfloat16"])):
+        check(math.isfinite(a["loss"]) and abs(a["loss"] - b["loss"])
+              <= TRAIN_BF16_LOSS_RTOL * abs(b["loss"]),
+              f"13a: bf16 step {i} loss {a['loss']} != CPU {b['loss']}")
+    say(f"phase 13a training, small preset ({TRAIN_SMALL_BATCH} x "
+        f"{TRAIN_SMALL_SEQ} tokens): {len(card32)} float32 steps on the "
+        f"card == the CPU's (master max err {err['master']:.3g} of "
+        f"sum(lr), a share {err['master_tail']:.3g} beyond "
+        f"{TRAIN_MASTER_LR_TOL}; m {err['m']:.3g} and v {err['v']:.3g} of "
+        f"each leaf's largest), bf16 losses "
+        + ", ".join(f"{a['loss']:.5f}/{b['loss']:.5f}"
+                    for a, b in zip(card16, cpu["bfloat16"]))
+        + f" (card/CPU); the CPU process took {cpu['s']:.1f} s")
+    return {"float32": card32, "bfloat16": card16, "cpu": {
+        k: cpu[k] for k in ("float32", "bfloat16", "s")},
+        "max_err": err, "sum_lr": sum_lr}
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """(model FLOPs a step, the remat recompute's FLOPs, the formula):
+    6 N T over the parameters that multiply (the embedding is a lookup)
+    plus PaLM's attention term 12 L H hd S T (the plain path computes
+    the full S x S scores); remat runs each layer's forward again (2 N T
+    without the head, 4 L H hd S T), the chunked CE the head's, and the
+    checkpointed query blocks of S > 1024 the attention once more."""
+    L, H, hd = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim
+    T = batch * seq
+    n_mm = n_params - (0 if cfg.tie_embeddings
+                       else cfg.padded_vocab * cfg.d_model)
+    attn = 4 * L * H * hd * seq * T            # one forward's scores + PV
+    model = 6 * n_mm * T + 3 * attn
+    recompute = 2 * n_mm * T + attn * (2 if seq > 1024 else 1)
+    formula = (f"6 N T + 12 L H hd S T = 6 x {n_mm} x {T} + 12 x {L} x {H} "
+               f"x {hd} x {seq} x {T}; remat recompute 2 N T + "
+               f"{'8' if seq > 1024 else '4'} L H hd S T")
+    return model, recompute, formula
+
+
+def full_train_run(torch, ops, dev, batch):
+    """13 (b) at one batch size: TRAIN_STEPS steps, the last TRAIN_TIMED
+    timed, one profiled step, microbatches 2 against 1, one int8_wire
+    step. Raises torch.cuda.OutOfMemoryError when it does not fit."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model_zoo, pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+    cfg = configs.get_config(TRAIN_ARCH)
+    model = model_zoo.build(cfg, s_max=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    state = opt.init_state(model.init(TRAIN_SEED, device=dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    step = make_train_step(model, ocfg)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=TRAIN_SEED)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        b = src.batch(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + norms)),
+          f"13b: non-finite loss or grad norm: {losses} {norms}")
+    box = {}
+    b = src.batch(TRAIN_STEPS)
+    rows, wall = profile_rows(torch, lambda: box.update(r=step(state, b)))
+    state, m = box.pop("r")
+    check(math.isfinite(float(m["loss"])), "13b: profiled step non-finite")
+    busy = sum(ms for _, ms, _ in rows)
+    # microbatches 2 against 1 on one batch: the k=1 loss is the forward
+    # the k=1 step would take on these masters
+    b = src.batch(TRAIN_STEPS + 1)
+    with torch.no_grad():
+        p16 = pdefs.tree_map(lambda x: x.to(torch.bfloat16), state.master)
+        loss1 = float(model.loss_fn(p16, b)[0])
+        del p16
+    state, m2 = make_train_step(model, ocfg, num_microbatches=2)(state, b)
+    loss2 = float(m2["loss"])
+    check(abs(loss2 - loss1) <= TRAIN_MB_LOSS_RTOL * abs(loss1),
+          f"13b: 2 microbatches' loss {loss2} against one batch's {loss1}")
+    state, m8 = make_train_step(model, ocfg, grad_compressor="int8_wire")(
+        state, src.batch(TRAIN_STEPS + 2))
+    gn8 = float(m8["grad_norm"])
+    check(math.isfinite(gn8) and math.isfinite(float(m8["loss"])),
+          f"13b: int8_wire step: grad norm {gn8}")
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    check(all(n == 0 for n in counts.values()),
+          f"13b: the training steps launched kernels: {counts}")
+    timed = sorted(times[-TRAIN_TIMED:])
+    med = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    flops, recompute, formula = train_flops(cfg, model.n_params(), batch,
+                                            TRAIN_SEQ)
+    return {
+        "arch": TRAIN_ARCH, "n_params": model.n_params(), "batch": batch,
+        "seq": TRAIN_SEQ, "tokens_per_step": batch * TRAIN_SEQ,
+        "init_s": init_s, "step_ms": times, "step_ms_median": med,
+        "step_ms_min": timed[0], "step_ms_max": timed[-1],
+        "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3),
+        "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+        "profiled_wall_ms": wall, "profiled_device_ms": busy,
+        "busy_share": busy / wall, "top_ops": rows[:12],
+        "model_flops": flops, "recompute_flops": recompute,
+        "flops_formula": formula,
+        "mfu": flops / (med / 1e3) / BF16_PEAK_OPS_PER_S,
+        "hfu": (flops + recompute) / (med / 1e3) / BF16_PEAK_OPS_PER_S,
+        "microbatch": {"loss_k1": loss1, "loss_k2": loss2,
+                       "grad_norm_k2": float(m2["grad_norm"])},
+        "int8_wire": {"loss": float(m8["loss"]), "grad_norm": gn8},
+        "launches": counts}
+
+
+def phase_train_full(torch, ops, dev):
+    """13 (b): qwen2-1.5b at full width and depth; a batch that does not
+    fit is halved (widths and depth never cut) and the cut printed."""
+    out = None
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, 1):
+        try:
+            out = full_train_run(torch, ops, dev, batch)
+        except torch.cuda.OutOfMemoryError:
+            pass
+        if out is not None:
+            break
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"phase 13b: batch {batch} x {TRAIN_SEQ} does not fit on the "
+            f"card; the batch is cut")
+    if out is None:
+        raise CheckFailed("13b: the model does not train at batch 1")
+    out["batch_cut"] = out["batch"] != TRAIN_BATCH
+    t = out
+    say(f"phase 13b training {TRAIN_ARCH} full width and depth "
+        f"({t['n_params'] / 1e9:.3f} B params, fp32 masters, bf16 compute, "
+        f"remat) at {t['batch']} x {t['seq']} tokens"
+        + (" (batch cut)" if t["batch_cut"] else "")
+        + f": step {t['step_ms_median']:.1f} ms median of the last "
+        f"{TRAIN_TIMED} ({t['step_ms_min']:.1f}-{t['step_ms_max']:.1f}), "
+        f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mem_gb']:.2f} GB; "
+        f"loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; profiled step "
+        f"wall {t['profiled_wall_ms']:.1f} ms, device busy "
+        f"{100 * t['busy_share']:.1f}%; model FLOPs {t['model_flops']:.4g} "
+        f"({t['flops_formula']}), {100 * t['mfu']:.2f}% of the bf16 dense "
+        f"peak ({BF16_PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s), with the "
+        f"recompute ({t['recompute_flops']:.4g}) "
+        f"{100 * t['hfu']:.2f}%; 2 microbatches' loss "
+        f"{t['microbatch']['loss_k2']:.5f} against "
+        f"{t['microbatch']['loss_k1']:.5f}; int8_wire grad norm "
+        f"{t['int8_wire']['grad_norm']:.4g}; kernel launches "
+        f"{t['launches']}")
+    say("phase 13b top device ops (profiled step): " + ", ".join(
+        f"{k[:56]} {ms:.2f} ms x{n}" for k, ms, n in t["top_ops"][:8]))
+    return out
+
+
+def phase_train_resume(torch, np, dev):
+    """13 (c): at the small preset, 6 steps straight against 3, save,
+    restore, 3 (rtol 1e-5, atol 1e-6, the reference's resume test); an
+    async save at step 3 equals the step-3 state while the next steps
+    update that state in place."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticLM
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import model_zoo, pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer
+    cfg = preset_config(TRAIN_ARCH, "small")
+    model = model_zoo.build(cfg, s_max=TRAIN_SMALL_SEQ)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup=2, total_steps=50)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH,
+                      seed=2)
+    tr = Trainer(model, ocfg, device=dev)
+    s_ref, _ = tr.run(tr.init_state(seed=3), iter(ShardedLoader(src)),
+                      steps=6, log_every=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        tr2 = Trainer(model, ocfg, ckpt_dir=tmp, ckpt_every=1000, device=dev)
+        s, _ = tr2.run(tr2.init_state(seed=3), iter(ShardedLoader(src)),
+                       steps=3, log_every=0)
+        snap = [t.cpu().clone() for t in pdefs.tree_leaves(s.master)]
+        th = ckpt.save(tmp, s, int(s.step), async_=True)
+        s, _ = tr2.run(s, iter(ShardedLoader(src, start_step=3)), steps=3,
+                       log_every=0)
+        th.join(timeout=120)
+        check(not th.is_alive(), "13c: the async save did not finish")
+        restored = ckpt.restore_latest(tmp)
+        step0 = restored.pop("__step__")
+        check(step0 == 3, f"13c: restored step {step0}")
+        for name, want in zip(ckpt._flatten(s.master), snap):
+            check(np.array_equal(restored[".master__" + name], want.numpy()),
+                  f"13c: the async save of step 3 holds a later {name}")
+        s2 = ckpt.load_into(restored, tr2.init_state(seed=3))
+        s2, _ = tr2.run(s2, iter(ShardedLoader(src, start_step=step0)),
+                        steps=3, log_every=0)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = 0.0
+    for a, b in zip(pdefs.tree_leaves(s_ref.master),
+                    pdefs.tree_leaves(s2.master)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        check(np.allclose(b, a, rtol=1e-5, atol=1e-6),
+              f"13c: resumed master differs from 6 straight steps by "
+              f"{float(np.abs(a - b).max())}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    check(int(s2.step) == 6, f"13c: resumed to step {int(s2.step)}")
+    say(f"phase 13c resume, small preset: 3 steps + async save + restore + "
+        f"3 == 6 straight (max abs err {worst:.3g}); the async save of step "
+        f"3 is step 3's state while 3 later steps updated it in place "
+        f"({resume_s:.2f} s)")
+    return {"max_abs_err": worst, "s": resume_s}
+
+
+def phase_train_cli(torch):
+    """13 (d): ``python -m repro_torch.launch.train`` on the card at the
+    tiny preset: 30 steps with the loss falling, then a second call to
+    40 steps resuming from the step-25 checkpoint."""
+    import re
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = []
+    try:
+        for steps in (30, 40):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TRAIN_ARCH, "--preset", "tiny", "--steps", str(steps),
+                 "--ckpt", tmp], capture_output=True, text=True, timeout=600,
+                env=env, cwd=ROOT)
+            runs.append({"steps": steps, "rc": r.returncode,
+                         "s": time.perf_counter() - t0,
+                         "stdout": r.stdout[-4000:],
+                         "stderr": r.stderr[-4000:]})
+            check(r.returncode == 0, f"13d: launch.train --steps {steps} "
+                                     f"exited {r.returncode}: {r.stderr[-800:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, second = runs[0]["stdout"], runs[1]["stdout"]
+    name = torch.cuda.get_device_name(0)
+    check(f"device={name}" in first, "13d: launch.train did not run on the "
+                                     "card")
+    m = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", first)
+    check(m is not None and float(m.group(2)) < float(m.group(1)),
+          f"13d: the loss did not fall: {first[-400:]}")
+    check("resumed from step 25" in second,
+          f"13d: the second call did not resume from step 25: "
+          f"{second[-400:]}")
+    say(f"phase 13d launch.train CLI on the card: --steps 30 loss "
+        f"{m.group(1)} -> {m.group(2)} in {runs[0]['s']:.1f} s; --steps 40 "
+        f"resumed from step 25 in {runs[1]['s']:.1f} s")
+    return runs
+
+
+def phase_train(torch, np, ops, dev):
+    """Phase 13, training; (a)'s CPU run goes on in a worker process
+    beside (c) and (d), after (b)'s timed steps, and is compared last."""
+    out = {"full": phase_train_full(torch, ops, dev)}
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_job = pool.apply_async(train_cpu_job)
+        out["resume"] = phase_train_resume(torch, np, dev)
+        out["cli"] = phase_train_cli(torch)
+        out["small"] = phase_train_small(torch, np, dev, cpu_job)
+    finally:
+        pool.terminate()
+        pool.join()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -3142,6 +3555,11 @@ def main(argv=None):
             lambda: fork_engine.fork_cache(cache1, FORK_N))
         kernels += phase_lm_timing(torch, ops, ref, lm_rec, cache1, flash_n,
                                    rc_n)
+        # the serving model's 33 GB leave the card before training
+        del model, params, prompts, lm_rec, cache1, fork, fork_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["train"] = phase_train(torch, np, ops, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -20,11 +20,13 @@ from repro_torch.core.smcprog import PolicyProgram
 from repro_torch.core.state import TRACE_FIELDS, EmulatorState, StreamState
 from repro_torch.core.timescale import SystemConfig
 from repro_torch.device import resolve_device
+from repro_torch.train.optimizer import AdamWState
 
 __all__ = ["system_config_from_dict", "trace_from_arrays",
            "policy_from_fields", "bloom_from_words", "EmulatorState",
            "stream_state_from_host",
-           "lm_params_from_numpy", "cache_from_numpy", "tensor_from_numpy"]
+           "lm_params_from_numpy", "cache_from_numpy", "tensor_from_numpy",
+           "adamw_state_from_numpy"]
 
 
 def policy_from_fields(table, score_reg: int, boost_reg: int = -1,
@@ -111,3 +113,14 @@ def lm_params_from_numpy(tree, device):
 
 
 cache_from_numpy = lm_params_from_numpy
+
+
+def adamw_state_from_numpy(state, device) -> AdamWState:
+    """The reference's ``AdamWState`` with numpy leaves (``tree_map(
+    np.asarray, state)``: a 0-d int32 step, the master, m and v trees)
+    -> the port's on ``device`` (``None`` means CUDA), dtypes kept."""
+    step, master, m, v = state
+    return AdamWState(step=tensor_from_numpy(step, resolve_device(device)),
+                      master=lm_params_from_numpy(master, device),
+                      m=lm_params_from_numpy(m, device),
+                      v=lm_params_from_numpy(v, device))

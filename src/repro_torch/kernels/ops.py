@@ -307,7 +307,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """q ``[BHq, Sq, hd]``, k / v ``[BHkv, Sk, hd]`` -> ``[BHq, Sq, hd]``."""
+    """q ``[BHq, Sq, hd]``, k / v ``[BHkv, Sk, hd]`` -> ``[BHq, Sq, hd]``.
+
+    Forward only, on both routes, as the reference's Pallas kernel (it has
+    no backward): under autograd with an input that requires grad it
+    raises, where the kernel's output would silently carry no gradient.
+    Training takes the plain attention (``attn_apply(use_flash=False)``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention has no backward (nor has the reference's "
+            "kernel); train through the plain attention, use_flash=False")
     if _route("flash_attention", q) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
     return flash_attention_cuda(q, k, v, causal)

@@ -22,19 +22,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.launch.train import PRESETS, preset_config
 from repro_torch.models import model_zoo
 from repro_torch.serve.engine import ServeEngine
-
-# reduced configurations of any architecture (the reference's
-# repro.launch.train.PRESETS)
-PRESETS = {
-    "tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
-                 vocab_size=512, head_dim=32),
-    "small": dict(n_layers=6, d_model=512, n_heads=8, n_kv_heads=4, d_ff=1536,
-                  vocab_size=8192, head_dim=64),
-    "full": {},
-}
 
 
 def main(argv=None):
@@ -53,9 +43,7 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if PRESETS[args.preset]:
-        cfg = cfg.scaled(**PRESETS[args.preset])
+    cfg = preset_config(args.arch, args.preset)
     s_max = args.prompt_len + args.new
     model = model_zoo.build(cfg, s_max=s_max)
     params = model.init(0, device=args.device)

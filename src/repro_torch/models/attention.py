@@ -3,8 +3,10 @@
 The reference keeps its pure-jnp path as the default only because its
 dry run lowers that path for ``cost_analysis``. The port has no dry run,
 so :func:`attn_apply` takes the flash kernel by default
-(``use_flash=True``, which the reference keeps "for TPU runs"); the plain
-path stays for the tests. Cross attention (``cross_attn_apply``,
+(``use_flash=True``, which the reference keeps "for TPU runs"). Training
+takes the plain path (``use_flash=False``), as the reference's models
+do: its flash kernel has no backward, and neither has the port's (the
+wrapper raises under autograd). Cross attention (``cross_attn_apply``,
 ``cross_kv``) waits for the encoder-decoder (ROADMAP Queue A 12).
 """
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_rope, remat, rms_norm
 from repro_torch.models.pdefs import ParamDef
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
@@ -75,7 +77,10 @@ def _sdpa(q, k, v, mask, scale):
 
 
 def _sdpa_chunked(q, k, v, causal, scale, block_q=512):
-    """Query-blocked exact attention: scores materialize per q-block only."""
+    """Query-blocked exact attention: scores materialize per q-block only,
+    and under autograd each block is recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` of its scan body), so no block's
+    scores outlive it."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     bq = min(block_q, Sq)
@@ -84,15 +89,17 @@ def _sdpa_chunked(q, k, v, causal, scale, block_q=512):
             if Sq % cand == 0:
                 bq = cand
                 break
-    outs = []
-    for i in range(Sq // bq):
-        qi = q[:, i * bq:(i + 1) * bq]
+
+    def block(i, qi, k, v):
         mask = None
         if causal:
             qpos = i * bq + torch.arange(bq, device=q.device)
             mask = (qpos[:, None] >= torch.arange(Sk, device=q.device)[None, :]
                     )[None, None, None]
-        outs.append(_sdpa(qi, k, v, mask, scale))
+        return _sdpa(qi, k, v, mask, scale)
+
+    outs = [remat(block, i, q[:, i * bq:(i + 1) * bq], k, v)
+            for i in range(Sq // bq)]
     return torch.cat(outs, dim=1)
 
 

@@ -7,8 +7,20 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.pdefs import ParamDef
+
+
+def remat(fn, *args):
+    """``jax.checkpoint(fn)(*args)``: the activations inside ``fn`` are not
+    kept for the backward pass but recomputed there (the model has no
+    randomness, so no RNG state is saved). A plain call when autograd
+    records nothing (serving runs under ``torch.no_grad``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def rms_norm(x, weight, eps):

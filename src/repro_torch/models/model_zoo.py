@@ -1,13 +1,15 @@
 """Model zoo: build per-architecture functional models.
 
-``build(cfg, s_max)`` returns a :class:`Model` whose functions serve the
-decoder-only dense LM: ``prefill_fn`` and ``decode_fn``. Training
-(``loss_fn``), the VLM and the encoder-decoder are later slices of the
-port (ROADMAP Queue A 12) and raise ``NotImplementedError``.
+``build(cfg, s_max)`` returns a :class:`Model` whose functions train and
+serve the decoder-only dense LM: ``loss_fn`` (train), ``prefill_fn`` and
+``decode_fn`` (serve). The VLM and the encoder-decoder are later slices
+of the port (ROADMAP Queue A 12) and raise ``NotImplementedError``.
 
 The prefill takes the flash kernel by default (``use_flash=True``): the
 reference defaults to its jnp path only for its dry run, which the port
-does not have.
+does not have. ``loss_fn`` always takes the plain attention, as the
+reference's models do (they are built with ``use_flash=False``): neither
+flash kernel has a backward.
 """
 from __future__ import annotations
 
@@ -19,6 +21,55 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import pdefs
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import remat as _remat
+
+
+def _ce_loss(cfg, logits, targets, mask=None):
+    """fp32 CE with padded-vocab masking + z-loss."""
+    logits = logits.float()
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    pad_bias = torch.where(vocab < cfg.vocab_size, 0.0, -1e9)
+    logits = logits + pad_bias
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    z = 1e-4 * lse ** 2
+    per_tok = nll + z
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=logits.device)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (per_tok * mask).sum() / denom
+
+
+def _block_len(S, target=512, align=16):
+    """Largest block <= target dividing S, preferring SP-friendly multiples."""
+    for bs in range(min(target, S), 0, -1):
+        if S % bs == 0 and bs % align == 0:
+            return bs
+    for bs in range(min(target, S), 0, -1):
+        if S % bs == 0:
+            return bs
+    return S
+
+
+def _ce_loss_chunked(cfg, head_fn, h, targets, block=512):
+    """Chunked CE: logits are materialized one seq-block at a time and
+    recomputed in the backward pass (the full [B,S,V] fp32 logits tensor
+    never exists). The mean of the blocks' means, summed in block order
+    from 0 as the reference's scan does."""
+    B, S, _ = h.shape
+    bs = _block_len(S, block)
+    nb = S // bs
+
+    def body(hi, ti):
+        return _ce_loss(cfg, head_fn(hi), ti)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nb):
+        sl = slice(i * bs, (i + 1) * bs)
+        tot = tot + _remat(body, h[:, sl], targets[:, sl])
+    return tot / nb
 
 
 @dataclasses.dataclass
@@ -41,13 +92,27 @@ class Model:
         return pdefs.count_params(self.defs)
 
 
-def _build_lm(cfg, s_max, use_flash=True, cache_dtype=torch.bfloat16):
+def _build_lm(cfg, s_max, use_flash=True, remat=True,
+              cache_dtype=torch.bfloat16):
     defs = tf.lm_defs(cfg)
 
     def loss_fn(params, batch):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP Queue A 12: loss_fn, "
-            "train/, data/, checkpoint/)")
+        """(loss, {"ce", "moe_aux", "moe_z"}); ``batch`` holds int
+        ``tokens`` and ``targets`` ``[B, S]`` on any device (moved to the
+        parameters'). The aux terms are 0: no MoE block yet."""
+        dev = params["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        targets = torch.as_tensor(batch["targets"], device=dev)
+        x = tf.embed_tokens(params, cfg, tokens)
+        positions = torch.arange(x.shape[1], device=dev)
+        h = tf.forward_train(params, cfg, x, positions, remat=remat,
+                             use_flash=False)
+        ce = _ce_loss_chunked(
+            cfg, lambda hi: tf.logits_from_hidden(params, cfg, hi), h,
+            targets)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        loss = ce + zero + zero
+        return loss, {"ce": ce, "moe_aux": zero, "moe_z": zero}
 
     def prefill_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"],
@@ -72,9 +137,9 @@ def _build_lm(cfg, s_max, use_flash=True, cache_dtype=torch.bfloat16):
         loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn)
 
 
-def build(cfg, s_max: int, use_flash: bool = True,
+def build(cfg, s_max: int, use_flash: bool = True, remat: bool = True,
           cache_dtype=torch.bfloat16) -> Model:
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet (ROADMAP Queue A 12)")
-    return _build_lm(cfg, s_max, use_flash, cache_dtype)
+    return _build_lm(cfg, s_max, use_flash, remat, cache_dtype)

@@ -33,18 +33,27 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
     """Map ``fn`` over the leaves of a nested dict (keys in sorted order,
-    as ``jax.tree_util`` orders them)."""
+    as ``jax.tree_util`` orders them), and over the same leaves of
+    ``rest``, trees of the same structure: ``fn(leaf, *rest_leaves)``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def init_tree(generator: torch.Generator, defs, dtype=torch.float32,

@@ -5,7 +5,8 @@ pair; parameters are stacked over ``n_layers // P`` groups, and the
 forward passes loop over the groups (the reference scans them with
 ``lax.scan``). The port builds the dense pattern ``("attn", "dense")``;
 mamba, rwkv and MoE positions raise ``NotImplementedError`` (ROADMAP
-Queue A 12).
+Queue A 12). ``forward_train`` is differentiable (``loss_fn``); the
+prefill and decode run under ``torch.no_grad``.
 
 Parameters and caches are nested dicts of tensors with the reference's
 structure and its stacked ``[G, ...]`` axis, so the reference's trees
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import pdefs
 from repro_torch.models.pdefs import ParamDef, stack_defs
 
 
@@ -103,6 +105,15 @@ def group_params(blocks, g: int):
     return blocks[g]
 
 
+def unstack_groups(blocks, G: int) -> list:
+    """The stacked ``[G, ...]`` parameters as G per-group trees of views,
+    one ``unbind`` a leaf. Under autograd its backward stacks the G
+    groups' gradients once, where indexing each group would scatter each
+    gradient into a zero tensor of the whole stack."""
+    per_leaf = pdefs.tree_map(lambda t: t.unbind(0), blocks)
+    return [pdefs.tree_map(lambda u, g=g: u[g], per_leaf) for g in range(G)]
+
+
 # ---------------- caches ----------------
 
 def cache_specs(cfg, batch: int, s_max: int, dtype=torch.bfloat16):
@@ -131,15 +142,18 @@ def _rope_sc(cfg, positions):
     return L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash):
+def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash, mode="prefill"):
     """Apply one pattern group over a full sequence. Returns (x, kv) with
-    each attention position's (k, v) in the compute dtype."""
-    kv = {}
+    each attention position's (k, v) in the compute dtype for a prefill,
+    kv None in ``mode="train"`` (nothing kept past the group)."""
+    kv = {} if mode == "prefill" else None
     for i, (mx, ml) in enumerate(pat):
         p = params_g[f"p{i}"]
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, kv[f"p{i}"] = attn.attn_apply(p["mixer"], cfg, h, rope_sc,
-                                         causal=True, use_flash=use_flash)
+        y, kv_i = attn.attn_apply(p["mixer"], cfg, h, rope_sc, causal=True,
+                                  use_flash=use_flash)
+        if kv is not None:
+            kv[f"p{i}"] = kv_i
         x = x + y
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(p["mlp"], h, cfg.act)
@@ -161,14 +175,24 @@ def _block_decode(cfg, pat, params_g, x, rope_sc, cache_g, pos: int):
     return x
 
 
-def forward_train(params, cfg, x, positions, use_flash=True):
+def forward_train(params, cfg, x, positions, remat=True, use_flash=True):
     """x ``[B, S, d]`` embedded input -> final-normed hidden states.
-    Forward only: training (``loss_fn``, remat) is ROADMAP Queue A 12."""
+
+    With ``remat`` each layer group is recomputed in the backward pass
+    (the reference's ``jax.checkpoint`` of its scan body), so only the
+    groups' inputs are kept. ``loss_fn`` passes ``use_flash=False``: the
+    flash kernel has no backward. The reference also returns the MoE aux
+    losses; the port builds no MoE block yet (ROADMAP Queue A 12), so
+    they are 0 and ``loss_fn`` adds them itself."""
     pat = layer_pattern(cfg)
     rope_sc = _rope_sc(cfg, positions)
-    for g in range(n_groups(cfg)):
-        x, _ = _block_seq(cfg, pat, group_params(params["blocks"], g), x,
-                          rope_sc, use_flash)
+
+    def body(x, params_g):
+        return _block_seq(cfg, pat, params_g, x, rope_sc, use_flash,
+                          mode="train")[0]
+
+    for params_g in unstack_groups(params["blocks"], n_groups(cfg)):
+        x = L.remat(body, x, params_g) if remat else body(x, params_g)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -1001,3 +1001,84 @@ def test_ref_scan_cuda_refusals(cuda_device):
     pw = dataclasses.replace(p, use_weak=1)
     with pytest.raises(ValueError, match="m_bits"):
         ref_scan_cuda(e, e, e, e, e, (words, 2, 256), None, costs, pw)
+
+
+# ---------------- training ----------------
+
+@pytest.mark.cuda
+def test_flash_attention_raises_under_grad_on_the_card(cuda_device):
+    """The CUDA route refuses autograd (the kernel's output would carry
+    no gradient) and launches nothing; under ``no_grad`` it launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((1, 128, 2, 64), generator=g, device=cuda_device)
+    kv = torch.randn((1, 128, 1, 64), generator=g, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.clone().requires_grad_(), kv, kv)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention_bhsd(q[0].transpose(0, 1).contiguous(),
+                                 kv[0].transpose(0, 1).contiguous()
+                                 .requires_grad_(),
+                                 kv[0].transpose(0, 1).contiguous())
+    assert ops.launches()["flash_attention"] == 0
+    with torch.no_grad():
+        ops.flash_attention(q.clone().requires_grad_(), kv, kv)
+    assert ops.launches()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_two_fp32_train_steps_on_the_card_match_the_cpu(cuda_device):
+    """The CPU tests' tiny qwen2 (tests/test_torch_train.py), the same
+    float32 masters on both devices, 2 steps at float32 compute with TF32
+    off: the CPU tests' tolerances (loss and grad norm rtol 1e-5; m and v
+    within 1e-4 of each leaf's largest) and chip_smoke.py 13a's rule for
+    the masters (in units of the summed lr: all within 2, all but 1e-4 of
+    them within 1e-2); no kernel launches."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model_zoo, pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+    cfg = configs.get_config("qwen2_1_5b").scaled(
+        n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+        vocab_size=128, head_dim=16)
+    model = model_zoo.build(cfg, s_max=16)
+    params = model.init(0, device="cpu")
+    src = SyntheticLM(cfg.vocab_size, 16, 8, seed=3)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launches()
+    try:
+        runs = []
+        for dev in ("cpu", cuda_device):
+            state = opt.init_state(pdefs.tree_map(
+                lambda t: t.to(dev, copy=True), params))
+            step = make_train_step(model, opt.AdamWConfig(
+                lr=1e-2, warmup=5, total_steps=50, clip_norm=0.05),
+                compute_dtype=torch.float32)
+            ms = []
+            for i in range(2):
+                state, m = step(state, src.batch(i))
+                ms.append({k: float(v) for k, v in m.items()})
+            runs.append((state, ms))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert ops.launches() == {n: 0 for n in ops.KERNELS}
+    (cpu, cpu_m), (card, card_m) = runs
+    assert card.master["embed"].device.type == "cuda"
+    for a, b in zip(card_m, cpu_m):
+        assert a["lr"] == b["lr"]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+    sum_lr = sum(m["lr"] for m in cpu_m)
+    for name in ("m", "v"):
+        for g, w in zip(pdefs.tree_leaves(getattr(card, name)),
+                        pdefs.tree_leaves(getattr(cpu, name))):
+            w = w.numpy()
+            np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max())
+    d = np.concatenate([(g.cpu() - w).abs().numpy().ravel() for g, w in zip(
+        pdefs.tree_leaves(card.master), pdefs.tree_leaves(cpu.master))])
+    assert d.max() <= chip_smoke.TRAIN_MASTER_BOUND * sum_lr
+    assert (d > chip_smoke.TRAIN_MASTER_LR_TOL * sum_lr).mean() \
+        <= chip_smoke.TRAIN_MASTER_TAIL

@@ -450,9 +450,18 @@ def test_unported_families_raise(arch):
 
 
 def test_loss_fn_raises_and_init_needs_a_device():
+    """The flash route raises under autograd (the kernel has no backward),
+    so ``loss_fn`` trains through the plain attention; ``init`` needs a
+    device."""
     model = pzoo.build(port_cfg(tiny_cfg("qwen3_8b")), s_max=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn({}, {})
+    q = torch.zeros((1, 128, 2, 16), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        pops.flash_attention(q, q[:, :, :1].detach(), q[:, :, :1].detach())
+    toks = np.random.RandomState(0).randint(0, 512, (2, 9))
+    loss, metrics = model.loss_fn(model.init(0, device="cpu"),
+                                  {"tokens": toks[:, :-1],
+                                   "targets": toks[:, 1:]})
+    assert loss.shape == () and bool(torch.isfinite(loss))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             model.init(0)

@@ -111,12 +111,13 @@ Phases, one line each:
 8. ``flash_attention`` and ``rowclone_copy`` against their plain
    versions on the reference kernel tests' grids;
 9. the LM serving path at the full width of ``qwen3-8b`` (random float32
-   weights from a seed, bf16 KV cache): ``ServeEngine.generate_batch``
-   over 4 prompts of 1024 tokens, 16 new tokens each, with the launch
-   counters reset just before it (the prefill launches ``flash_attention``
-   once per layer); the same generation with ``flash_attention`` swapped
-   for its plain version holds the prefill logits, the cache and the
-   greedy tokens;
+   weights from a seed, bf16 KV cache): a warm-up prefill, then
+   ``ServeEngine.generate_batch`` over 4 prompts of 1024 tokens, 16 new
+   tokens each, with the launch counters reset just before it (the
+   prefill launches ``flash_attention`` once per layer; its logits equal
+   the warm-up's bit for bit); the same generation with
+   ``flash_attention`` swapped for its plain version holds the prefill
+   logits, the cache and the greedy tokens;
 10. the KV-cache fork: one prompt's cache forked 4 ways through
    ``rowclone_copy`` (counters reset just before), bit for bit against the
    tiled fork, then 16 decode steps from each fork with identical logits;
@@ -144,8 +145,24 @@ Phases, one line each:
    tiny preset, 30 steps with the loss falling, then resumed to 40 from
    step 25; (a) the small preset's 3 float32 steps against the port's
    CPU run (a worker process started after (b)) at the CPU tests'
-   tolerances (the masters at a rule of their own, see TRAIN_MASTER_*),
-   and 3 bf16 steps' losses within 1e-2.
+   tolerances (the masters at a rule of their own, see TRAIN_MASTER_*;
+   the elements past TRAIN_MASTER_LR_TOL named with their gradients, m
+   and v on both sides), and 3 bf16 steps' losses within 1e-2;
+14. the MoE family (training's state freed first): (a)
+   granite-moe-1b-a400m at full width and depth served as phase 9
+   (counters reset just before: one flash launch a layer), each layer's
+   routing recorded on both routes: a token routed to other experts on
+   the plain route must sit at a near-tie (``MOE_TIE_RTOL``), its row's
+   later calls are then not compared, and the logits and cache of every
+   row routed alike are held to phase 9's tolerances; the same prefill
+   twice routes and computes bit for bit alike; flash at head dim 64 on
+   the first layer's inputs; forked and profiled as phases 10 and 11;
+   (b) qwen3-moe-30b-a3b at full width and 16 of its 48 layers served
+   as (a); (c) granite-moe-1b-a400m trained as 13b (7 steps, the last 5
+   timed; ``moe_aux`` / ``moe_z`` of the first and last; model FLOPs over
+   the active parameters), two bf16 forwards routed bit for bit alike,
+   no kernel launched. (a) and (b)'s flash and rowclone launches join the
+   ``kernels`` line's counts.
 
 Device ms per launch comes from a profiled window of back-to-back calls
 at least ``DEVICE_WINDOW_MS`` long, or from CUDA events when the trace
@@ -157,8 +174,8 @@ stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``;
 ``flash_attention`` and ``rowclone_copy``; the policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
-Training launches none of the kernels and adds no entry to the
-``kernels`` line.
+Training (phases 13 and 14c) launches none of the kernels and adds no
+entry to the ``kernels`` line.
 
 Exits non-zero on any failed check. The last two lines are the card's
 name and power limit, then ``{"ok": true, "device": {...}}``. Details go
@@ -202,8 +219,8 @@ FIELDS = ("exec_cycles", "row_hits", "served", "dram_ticks",
           "smc_fpga_cycles", "t_resp", "t_issue")
 PATH_KERNELS = ("bloom_probe", "slot_scan")   # launched by the entry points
 N_POLYBENCH = 12          # POLYBENCH[:12] at max_accesses=60000 (phase 5)
-SCAN_ACCESSES = 1000      # max_accesses of the phase-4 traces
-PLAIN_SLOT_LIMIT = 65540  # slot budget of a full 32768-request group
+SCAN_ACCESSES = 500       # max_accesses of the phase-4 traces
+PLAIN_SLOT_LIMIT = 32772  # slot budget of a full 16384-request group
 MAX_WORKERS = 8           # CPU worker processes of phases 4b, 7, 7b and 7c
 # phase 7b: the study's fault model with retention switched on, its
 # intensities and its requests a trace (the size of the main path's
@@ -301,7 +318,8 @@ ROWCLONE_SHAPES = [(8, 128), (64, 512), (33, 257), (1, 8192), (36, 65664),
 # masters in units of the summed lr: every element within Adam's bound
 # of 2, all but a TRAIN_MASTER_TAIL share within TRAIN_MASTER_LR_TOL:
 # 27 M elements have a longer tail of noise-level gradients than the
-# tests' 0.5 M), bf16 losses within 1e-2; (b) the arch at
+# tests' 0.5 M: their v sits at Adam's eps, each printed by
+# master_tail), bf16 losses within 1e-2; (b) the arch at
 # full width and depth, TRAIN_BATCH x TRAIN_SEQ tokens (S > 1024 takes
 # the checkpointed query blocks), TRAIN_STEPS steps of which the last
 # TRAIN_TIMED are timed, microbatches 2 against 1 at the reference
@@ -315,6 +333,24 @@ TRAIN_BF16_LOSS_RTOL = 1e-2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_TIMED = 4, 2048, 12, 10
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
 TRAIN_MB_LOSS_RTOL = 2e-2
+# phase 14, MoE (training's state freed first): (a) MOE_ARCH at full
+# width and depth served as phase 9 (LM_BATCH x LM_PROMPT tokens, LM_NEW
+# new, the flash route against the plain route), forked FORK_N ways as
+# phase 10 and profiled as phase 11; (b) MOE_BIG_ARCH at full width and
+# MOE_BIG_LAYERS of its 48 layers (its ~122 GB of fp32 weights at full
+# depth do not fit one card), served as (a); (c) MOE_ARCH trained as 13b,
+# MOE_TRAIN_STEPS steps of which the last MOE_TRAIN_TIMED are timed. The
+# routes may route a token differently only at a near-tie of its K-th and
+# (K+1)-th probabilities, relative to the K-th: in the prefill within
+# MOE_TIE_RTOL, or within twice the largest difference between the
+# routes' probabilities at its row's tokens routed alike in that layer
+# (the routes' differences compound over the layers; that difference
+# must stay within LOGIT_TOL); in a decode step, whose routes run the
+# same code and differ only through the bf16 cache, within CACHE_RTOL
+MOE_ARCH, MOE_BIG_ARCH, MOE_BIG_LAYERS = ("granite_moe_1b_a400m",
+                                          "qwen3_moe_30b_a3b", 16)
+MOE_TRAIN_STEPS, MOE_TRAIN_TIMED = 7, 5
+MOE_TIE_RTOL = 1e-5
 # kernel vs plain on one attention call: the tolerances of
 # tests/test_kernels.py (the kernel's online softmax sums in another order)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -2779,12 +2815,147 @@ def margins(torch, logits, vocab):
     return top[:, 0] - top[:, 1]
 
 
-def phase_serve(torch, np, ops, ref, dev, lm):
-    """The serving path at full width; returns the flash launches, the
-    model, its parameters, the prompts and the recorder."""
-    configs, model_zoo, engine_mod = lm
-    cfg = configs.get_config(LM_ARCH)
+class RouteRecorder:
+    """Wraps ``moe.route`` to keep each call's routing in call order (a
+    prefill's layers, then each decode step's): the chosen experts sorted
+    per token (their order within the top k does not change a slot or a
+    sum), whether each was kept, in the same order, and the K+1 largest
+    probabilities."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.orig = moe_mod, moe_mod.route
+        self.calls = None
+
+    def start(self):
+        import torch
+        calls = self.calls = []
+        orig = self.orig
+
+        def rec(p, cfg, x):
+            r = orig(p, cfg, x)
+            idx, order = torch.sort(r.expert_idx, dim=-1)
+            calls.append({"idx": idx, "keep": torch.gather(r.keep, -1, order),
+                          "top": torch.topk(r.probs, cfg.moe.top_k + 1,
+                                            dim=-1).values})
+            return r
+        self.mod.route = rec
+
+    def stop(self):
+        self.mod.route = self.orig
+        return self.calls
+
+
+def same_routing(torch, a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x[k], y[k]) for x, y in zip(a, b)
+        for k in ("idx", "keep", "top"))
+
+
+def compare_routes(torch, kern, plain, tokens, tokens_plain, marg, scale,
+                   per_forward):
+    """The kernel route's routing and greedy tokens against the plain
+    route's. Call by call, a row is compared until its routing first
+    differs or its tokens split: in that call every token routed to
+    another set of experts must sit at a near-tie (see MOE_TIE_RTOL), and
+    a kept flag may differ only at or after such a token of its group
+    (its slot moved). Greedy tokens are compared as phase 9 compares them
+    while a row's routing agrees. Returns the counts, the flips (with the
+    bound each was held to), each row's first differing call (None:
+    none) and the largest drift between the routes' probabilities at
+    tokens routed alike, prefill and decode apart. ``per_forward`` is the
+    routing calls a forward makes (0 for a dense model: then only the
+    tokens are compared)."""
+    check(len(kern) == len(plain) == per_forward * LM_NEW,
+          f"routing calls: {len(kern)} / {len(plain)} for {per_forward} "
+          f"a forward x {LM_NEW} forwards")
+    rows = tokens.shape[0]
+    first = [None] * rows          # first call whose routing differs
+    stopped = [False] * rows       # tokens split or routing differs
+    flips, decisions, compared, split = [], 0, 0, 0
+    min_gap = math.inf
+    # how far the routes' K+1 largest probabilities drift apart (relative
+    # to the K-th) at tokens routed alike, prefill and decode apart
+    drift = {"prefill": 0.0, "decode": 0.0}
+
+    def call(c):
+        nonlocal decisions, min_gap
+        A, P = kern[c], plain[c]
+        G, M, K = P["idx"].shape
+        per_row = G // rows
+        top = P["top"].float()
+        gap = ((top[..., K - 1] - top[..., K]) / top[..., K - 1]).cpu()
+        rel = ((A["top"].float() - top).abs().amax(-1)
+               / top[..., K - 1]).cpu()
+        moved = (A["idx"] != P["idx"]).any(-1).cpu()
+        kept = (A["keep"] != P["keep"]).any(-1).cpu()
+        after = torch.cummax(moved.int(), dim=1).values.bool()
+        prefill = c < per_forward
+        for r in range(rows):
+            if stopped[r]:
+                continue
+            sl = slice(r * per_row, (r + 1) * per_row)
+            decisions += per_row * M * K
+            min_gap = min(min_gap, float(gap[sl].min()))
+            alike = ~moved[sl]
+            d = float(rel[sl][alike].max()) if alike.any() else 0.0
+            kind = "prefill" if prefill else "decode"
+            drift[kind] = max(drift[kind], d)
+            check(not prefill or d <= LOGIT_TOL,
+                  f"call {c} row {r}: the routes' probabilities differ by "
+                  f"{d:.3g} of the K-th at tokens routed alike")
+            if not (moved[sl].any() or kept[sl].any()):
+                continue
+            bound = max(MOE_TIE_RTOL, 2 * d) if prefill else CACHE_RTOL
+            for g, m in moved[sl].nonzero().tolist():
+                g += r * per_row
+                flips.append({"call": c, "row": r, "group": g, "token": m,
+                              "gap": float(gap[g, m]), "bound": bound})
+                check(float(gap[g, m]) < bound,
+                      f"call {c} row {r} group {g} token {m}: routed "
+                      f"differently at a probability gap "
+                      f"{float(gap[g, m]):.3g} (not a near-tie: bound "
+                      f"{bound:.3g})")
+            check(bool((kept[sl].int() <= after[sl].int()).all()),
+                  f"call {c} row {r}: a kept flag differs with no moved "
+                  f"choice before it in its group")
+            first[r], stopped[r] = c, True
+
+    for c in range(per_forward):
+        call(c)
+    for t in range(LM_NEW):
+        for r in range(rows):
+            if stopped[r]:
+                continue
+            if tokens[r, t] == tokens_plain[r, t]:
+                compared += 1
+                continue
+            check(marg[r, t] <= LOGIT_TOL * scale,
+                  f"row {r} step {t}: greedy tokens differ at a top-2 "
+                  f"margin {marg[r, t]} above the tolerance")
+            split += 1
+            stopped[r] = True
+        if t < LM_NEW - 1:
+            for c in range(per_forward * (t + 1), per_forward * (t + 2)):
+                call(c)
+    return {"decisions": decisions, "flips": flips, "first": first,
+            "tokens_compared": compared, "rows_split_at_small_margin": split,
+            "min_gap": min_gap, "drift": drift}
+
+
+def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
+    """``cfg`` at full width served through ``ServeEngine.generate_batch``
+    (LM_BATCH prompts of LM_PROMPT tokens, LM_NEW new), the launch
+    counters reset just before (one flash launch a layer), then again
+    with flash swapped for its plain version: an MoE model's routing is
+    recorded on both routes (``compare_routes``); the prefill logits and
+    cache of the rows routed alike (every row of a dense model) are held
+    to LOGIT_TOL and CACHE_RTOL / CACHE_ATOL, greedy tokens by their
+    margins. A first prefill warms up and must equal the timed one's
+    routing and logits bit for bit. Returns the flash launches, the
+    detail, and the model, parameters, prompts and LM recorder."""
+    _, model_zoo, engine_mod = lm
     s_max = LM_PROMPT + LM_NEW
+    L = cfg.n_layers
     model = model_zoo.build(cfg, s_max=s_max)
     t0 = time.perf_counter()
     params = model.init(LM_SEED, device=dev)
@@ -2793,89 +2964,119 @@ def phase_serve(torch, np, ops, ref, dev, lm):
     engine = engine_mod.ServeEngine(model, params, s_max=s_max)
     prompts = np.random.RandomState(LM_SEED).randint(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
-    rec = LMRecorder(model, ops, ref)
-
+    rec, routes = LMRecorder(model, ops, ref), RouteRecorder(moe_mod)
+    # a first prefill warms the path up; its routing and logits must equal
+    # the timed run's bit for bit (the determinism remat relies on)
+    routes.start()
+    with torch.no_grad():
+        first, _ = model.prefill_fn(params, {"tokens": prompts})
     torch.cuda.synchronize()
+    twice = routes.stop()
+
     ops.reset_launches()
     rec.start()
+    routes.start()
     t1 = time.perf_counter()
     tokens = engine.generate_batch(prompts, LM_NEW)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t1
     counts = ops.launches()
+    kroute = routes.stop()
     kern = rec.stop()
-    check(counts["flash_attention"] == cfg.n_layers,
-          f"the prefill launched flash_attention {counts['flash_attention']} "
-          f"times, not once per layer ({cfg.n_layers})")
+    check(counts["flash_attention"] == L
+          and sum(counts.values()) == L,
+          f"{label}: the generation launched {counts}, not flash_attention "
+          f"once per layer ({L})")
     check(tokens.shape == (LM_BATCH, LM_NEW)
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-          f"generated tokens out of range or of shape {tokens.shape}")
+          f"{label}: generated tokens out of range or of shape "
+          f"{tokens.shape}")
 
     rec.start(plain_flash=True)
+    routes.start()
     tokens_plain = engine.generate_batch(prompts, LM_NEW)
     torch.cuda.synchronize()
+    proute = routes.stop()
     plain = rec.stop()
 
     (lk, ck), (lp, cp) = kern["prefill"], plain["prefill"]
-    check(bool(torch.isfinite(lk).all()), "non-finite prefill logits")
+    R = len(twice)      # routing calls a forward: one a layer, or none
+    check(R in (0, L), f"{label}: {R} routing calls in a {L}-layer prefill")
+    check(same_routing(torch, twice, kroute[:R]) and torch.equal(first, lk),
+          f"{label}: two prefills of the same prompts routed or computed "
+          f"differently")
+
+    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
     scale = float(lp.abs().max())
-    logit_err = float((lk - lp).abs().max())
+    steps = [lp] + plain["steps"]
+    marg = torch.stack([margins(torch, st, cfg.vocab_size) for st in steps],
+                       1).cpu().numpy()
+    cmp = compare_routes(torch, kroute, proute, tokens, tokens_plain, marg,
+                         scale, R)
+    held = [r for r in range(LM_BATCH)
+            if cmp["first"][r] is None or cmp["first"][r] >= R]
+    logit_err = max([float((lk[r] - lp[r]).abs().max()) for r in held],
+                    default=0.0)
     check(logit_err <= LOGIT_TOL * scale,
-          f"prefill logits: kernel route vs plain differ by {logit_err} "
-          f"(> {LOGIT_TOL} x {scale})")
+          f"{label}: prefill logits: kernel route vs plain differ by "
+          f"{logit_err} (> {LOGIT_TOL} x {scale}) on rows routed alike")
+    # a layer's cache is computed from its input, which an MoE flip only
+    # reaches in later layers
     cache_err = 0.0
     for pos in ck:
         for name in ck[pos]:
             a, b = ck[pos][name], cp[pos][name]
             check(a.dtype == torch.bfloat16 and a.shape == (
-                cfg.n_layers, LM_BATCH, LM_PROMPT, cfg.n_kv_heads,
-                cfg.resolved_head_dim), f"cache {pos}.{name}: {a.dtype} "
-                                        f"{tuple(a.shape)}")
-            ok, err = close(a, b, CACHE_ATOL * float(b.abs().max()),
-                            CACHE_RTOL)
-            check(ok, f"prefill cache {pos}.{name}: kernel route vs plain "
-                      f"differ by {err}")
-            cache_err = max(cache_err, err)
-    # greedy tokens agree wherever the plain route's top-2 margin exceeds
-    # the logit tolerance; after a legitimate split a row is not compared
-    steps = [lp] + plain["steps"]
-    marg = torch.stack([margins(torch, s, cfg.vocab_size) for s in steps],
-                       1).cpu().numpy()
-    compared = split = 0
-    for b in range(LM_BATCH):
-        for t in range(LM_NEW):
-            if tokens[b, t] == tokens_plain[b, t]:
-                compared += 1
-                continue
-            check(marg[b, t] <= LOGIT_TOL * scale,
-                  f"row {b} step {t}: greedy tokens differ at a top-2 "
-                  f"margin {marg[b, t]} above the tolerance")
-            split += 1
-            break
+                L, LM_BATCH, LM_PROMPT, cfg.n_kv_heads,
+                cfg.resolved_head_dim), f"{label}: cache {pos}.{name}: "
+                                        f"{a.dtype} {tuple(a.shape)}")
+            tol = CACHE_ATOL * float(b.abs().max())
+            for r in range(LM_BATCH):
+                f = cmp["first"][r]
+                n = L if f is None or f >= R else f + 1
+                ok, err = close(a[:n, r], b[:n, r], tol, CACHE_RTOL)
+                check(ok, f"{label}: prefill cache {pos}.{name} row {r}: "
+                          f"kernel route vs plain differ by {err}")
+                cache_err = max(cache_err, err)
     n_tok = LM_BATCH * LM_NEW
     decode_s = t_gen - kern["prefill_s"]
-    detail = {"arch": LM_ARCH, "n_params": model.n_params(),
+    detail = {"arch": cfg.name, "n_layers": L, "n_params": model.n_params(),
               "init_s": t_init, "generate_s": t_gen,
               "prefill_s": kern["prefill_s"],
               "prefill_plain_flash_s": plain["prefill_s"],
               "decode_s": decode_s,
               "decode_ms_per_step": decode_s * 1e3 / (LM_NEW - 1),
               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / kern["prefill_s"],
+              "flash_launches": counts["flash_attention"],
               "logit_err": logit_err, "logit_scale": scale,
-              "cache_err": cache_err, "tokens_compared": compared,
-              "rows_split_at_small_margin": split,
-              "min_margin": float(marg.min()),
-              "tokens": tokens.tolist(),
+              "rows_held": held, "cache_err": cache_err,
+              "routing": {k: v for k, v in cmp.items()},
+              "tokens": tokens.tolist(), "tokens_plain": tokens_plain.tolist(),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    say(f"phase 9 serve {cfg.name} full width ({model.n_params() / 1e9:.2f} B "
-        f"params fp32, init {t_init:.2f} s): {LM_BATCH} x {LM_PROMPT} prompt "
-        f"tokens, {LM_NEW} new, {t_gen:.2f} s (prefill "
-        f"{kern['prefill_s']:.2f} s, decode {detail['decode_ms_per_step']:.1f} "
-        f"ms per step); flash_attention launches {counts['flash_attention']}; "
-        f"kernel vs plain route: logits max err {logit_err:.3g} (scale "
-        f"{scale:.3g}), cache max err {cache_err:.3g}, {compared} of "
-        f"{n_tok} greedy tokens equal, {split} rows split at margins <= "
-        f"tolerance")
+    pre = [f["gap"] for f in cmp["flips"] if f["call"] < R]
+    dec = [f["gap"] for f in cmp["flips"] if f["call"] >= R]
+    say(f"{label} serve {cfg.name} ({L} layers, "
+        f"{model.n_params() / 1e9:.3f} B params fp32, init {t_init:.2f} s): "
+        f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} new, "
+        f"{t_gen:.2f} s (prefill {kern['prefill_s']:.3f} s, plain-flash "
+        f"prefill {plain['prefill_s']:.3f} s, decode "
+        f"{detail['decode_ms_per_step']:.1f} ms per step); flash_attention "
+        f"launches {counts['flash_attention']}; "
+        + (f"routing: {cmp['decisions']} decisions compared, tokens routed "
+           f"differently between the routes: {len(pre)} in the prefill "
+           f"(gaps {[float(f'{g:.3g}') for g in pre]}), {len(dec)} in "
+           f"decode steps (gaps {[float(f'{g:.3g}') for g in dec]}); the "
+           f"routes' probabilities drift by up to "
+           f"{cmp['drift']['prefill']:.3g} (prefill) and "
+           f"{cmp['drift']['decode']:.3g} (decode) of the K-th at tokens "
+           f"routed alike; smallest K-th/(K+1)-th gap "
+           f"{cmp['min_gap']:.3g}; " if R else "")
+        + "two prefills routed and computed bit for bit alike; logits max "
+        f"err "
+        f"{logit_err:.3g} (scale {scale:.3g}) on rows {held}, cache max err "
+        f"{cache_err:.3g}, {cmp['tokens_compared']} of {n_tok} greedy "
+        f"tokens equal, {cmp['rows_split_at_small_margin']} rows split at "
+        f"margins <= tolerance")
     return counts["flash_attention"], detail, model, params, prompts, rec
 
 
@@ -2899,20 +3100,24 @@ def profile_rows(torch, fn):
     return rows, wall
 
 
-def phase_profile(torch, model, params, prompts, fork, fork_fn):
-    """Where a full-width prefill's, a decode step's and a fork's time
-    goes: device time by kernel and the device's busy share of the wall
-    time, over enough back-to-back calls to span ``DEVICE_WINDOW_MS``
-    (a lone fork's profile came back empty)."""
+def phase_profile(torch, model, params, prompts, fork, fork_fn,
+                  label="phase 11"):
+    """Where a full-width prefill's, a decode step's (on the cache
+    ``fork``) and a fork's time goes (no fork when ``fork_fn`` is None):
+    device time by kernel and the device's busy share of the wall time,
+    over enough back-to-back calls to span ``DEVICE_WINDOW_MS`` (a lone
+    fork's profile came back empty)."""
     out = {}
     with torch.no_grad():
         runs = {"prefill": lambda: model.prefill_fn(params,
                                                     {"tokens": prompts}),
                 "decode": lambda: model.decode_fn(
-                    params, fork, torch.zeros((FORK_N, 1), dtype=torch.long,
-                                              device=params["embed"].device),
-                    LM_PROMPT + LM_NEW - 1),
-                "fork": fork_fn}
+                    params, fork, torch.zeros(
+                        (fork["p0"]["k"].shape[1], 1), dtype=torch.long,
+                        device=params["embed"].device),
+                    LM_PROMPT + LM_NEW - 1)}
+        if fork_fn is not None:
+            runs["fork"] = fork_fn
         for name, fn in runs.items():
             calls = max(1, math.ceil(DEVICE_WINDOW_MS / max(
                 cuda_ms(fn, reps=1), 1e-3)))
@@ -2922,7 +3127,7 @@ def phase_profile(torch, model, params, prompts, fork, fork_fn):
             out[name] = {"calls": calls, "wall_ms": wall / calls,
                          "device_ms": busy / calls, "busy_share": busy / wall,
                          "kernels": rows}
-            say(f"phase 11 {name} profile ({calls} calls): wall "
+            say(f"{label} {name} profile ({calls} calls): wall "
                 f"{wall / calls:.2f} ms, device busy {busy / calls:.2f} ms "
                 f"({100 * busy / wall:.1f}%) per call; over all calls: "
                 + ", ".join(f"{k[:48]} {ms:.3f} ms x{n}"
@@ -2930,7 +3135,8 @@ def phase_profile(torch, model, params, prompts, fork, fork_fn):
     return out
 
 
-def phase_fork(torch, ops, dev, lm, model, params, prompts):
+def phase_fork(torch, ops, dev, lm, model, params, prompts,
+               label="phase 10"):
     """One prompt's cache forked FORK_N ways through ``rowclone_copy``,
     bit for bit against the tiled fork, then LM_NEW decode steps from
     each fork with identical logits."""
@@ -2972,7 +3178,7 @@ def phase_fork(torch, ops, dev, lm, model, params, prompts):
             check(bool(torch.isfinite(la).all()), "non-finite decode logits")
             tok = la[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
     leaf = cache["p0"]["k"]
-    say(f"phase 10 fork: {FORK_N}-way fork of a {LM_PROMPT}-token cache "
+    say(f"{label} fork: {FORK_N}-way fork of a {LM_PROMPT}-token cache "
         f"({n_leaves} leaves of {tuple(leaf.shape)} {leaf.dtype}) through "
         f"rowclone_copy, {counts['rowclone_copy']} launches, "
         f"{t_fork * 1e3:.2f} ms (tiled {t_tile * 1e3:.2f} ms), bit for bit "
@@ -3082,12 +3288,14 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
 
 # ---------------- phase 13: training ----------------
 
-def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS):
+def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS, grads=None):
     """``launch.train``'s small preset of TRAIN_ARCH on ``device``: fp32
     masters drawn on the CPU from TRAIN_SEED (the same on every device),
     then ``steps`` AdamW steps at the ``compute`` dtype over SyntheticLM
     batches of TRAIN_SMALL_BATCH x TRAIN_SMALL_SEQ tokens. Returns the
-    state and each step's metrics as floats."""
+    state and each step's metrics as floats; each step's gradient leaves
+    (before clipping, as host float32 arrays) are appended to ``grads``
+    when it is a list."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.train import preset_config
@@ -3099,8 +3307,14 @@ def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS):
     params = pdefs.tree_map(lambda t: t.to(device),
                             model.init(TRAIN_SEED, device="cpu"))
     state = opt.init_state(params)
+
+    def keep(g):
+        grads.append([t.detach().float().cpu().numpy()
+                      for t in pdefs.tree_leaves(g)])
+        return g
     step = make_train_step(model, opt.AdamWConfig(**TRAIN_SMALL_OPT),
-                           compute_dtype=getattr(torch, compute))
+                           compute_dtype=getattr(torch, compute),
+                           grad_compressor=None if grads is None else keep)
     src = SyntheticLM(cfg.vocab_size, TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH,
                       seed=TRAIN_SEED)
     metrics = []
@@ -3119,8 +3333,9 @@ def train_cpu_job():
     from repro_torch.models import pdefs
     torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
     t0 = time.perf_counter()
-    out = {}
-    state, out["float32"] = small_train_run("cpu", "float32")
+    out = {"grads": []}
+    state, out["float32"] = small_train_run("cpu", "float32",
+                                            grads=out["grads"])
     out["state"] = {name: [t.numpy() for t in
                            pdefs.tree_leaves(getattr(state, name))]
                     for name in ("master", "m", "v")}
@@ -3133,11 +3348,14 @@ def phase_train_small(torch, np, dev, cpu_job):
     """13 (a): the small preset on the card against the port's CPU run on
     the same masters and batches: float32 compute (TF32 off) at the CPU
     tests' tolerances, bf16 losses within TRAIN_BF16_LOSS_RTOL."""
+    from repro_torch.checkpoint import ckpt
     from repro_torch.models import pdefs
-    state, card32 = small_train_run(dev, "float32")
+    card_grads = []
+    state, card32 = small_train_run(dev, "float32", grads=card_grads)
     card = {name: [t.cpu().numpy() for t in
                    pdefs.tree_leaves(getattr(state, name))]
             for name in ("master", "m", "v")}
+    leaf_names = list(ckpt._flatten(state.master))
     del state
     _, card16 = small_train_run(dev, "bfloat16")
     cpu = cpu_job.get(timeout=300)
@@ -3164,6 +3382,8 @@ def phase_train_small(torch, np, dev, cpu_job):
         card["master"], cpu["state"]["master"])]) / sum_lr
     tail = float((d > TRAIN_MASTER_LR_TOL).mean())
     err["master"], err["master_tail"] = float(d.max()), tail
+    named = master_tail(np, leaf_names, card, cpu["state"], card_grads,
+                        cpu["grads"], sum_lr)
     check(err["master"] <= TRAIN_MASTER_BOUND and tail <= TRAIN_MASTER_TAIL,
           f"13a: float32 masters differ from the CPU run by up to "
           f"{err['master']:.3g} of sum(lr), {tail:.3g} of them by more than "
@@ -3176,46 +3396,103 @@ def phase_train_small(torch, np, dev, cpu_job):
         f"{TRAIN_SMALL_SEQ} tokens): {len(card32)} float32 steps on the "
         f"card == the CPU's (master max err {err['master']:.3g} of "
         f"sum(lr), a share {err['master_tail']:.3g} beyond "
-        f"{TRAIN_MASTER_LR_TOL}; m {err['m']:.3g} and v {err['v']:.3g} of "
+        f"{TRAIN_MASTER_LR_TOL} ({len(named)} elements); m {err['m']:.3g} "
+        f"and v {err['v']:.3g} of "
         f"each leaf's largest), bf16 losses "
         + ", ".join(f"{a['loss']:.5f}/{b['loss']:.5f}"
                     for a, b in zip(card16, cpu["bfloat16"]))
         + f" (card/CPU); the CPU process took {cpu['s']:.1f} s")
     return {"float32": card32, "bfloat16": card16, "cpu": {
         k: cpu[k] for k in ("float32", "bfloat16", "s")},
-        "max_err": err, "sum_lr": sum_lr}
+        "max_err": err, "sum_lr": sum_lr, "master_tail": named}
+
+
+def master_tail(np, names, card, cpu, card_grads, cpu_grads, sum_lr,
+                most=16):
+    """The float32 master elements beyond TRAIN_MASTER_LR_TOL x sum(lr)
+    between the card and the CPU (ROADMAP Queue C 1): leaf and index,
+    and on both sides the master, m, v, Adam's denominator sqrt(v_hat)
+    against eps, and each step's gradient beside the leaf's largest
+    gradient magnitude that step. Prints the ``most`` largest; returns
+    them all as dicts."""
+    from repro_torch.train import optimizer as opt
+    ocfg = opt.AdamWConfig(**TRAIN_SMALL_OPT)
+    c2 = 1 - ocfg.b2 ** len(card_grads)
+    rows = []
+    for li, name in enumerate(names):
+        diff = np.abs(card["master"][li] - cpu["master"][li]) / sum_lr
+        for j in np.flatnonzero(diff.ravel() > TRAIN_MASTER_LR_TOL):
+            at = np.unravel_index(j, diff.shape)
+            row = {"leaf": name, "index": [int(i) for i in at],
+                   "d_over_sum_lr": float(diff[at])}
+            for side, st, gs in (("card", card, card_grads),
+                                 ("cpu", cpu, cpu_grads)):
+                v = float(st["v"][li][at])
+                row[side] = {
+                    "master": float(st["master"][li][at]),
+                    "m": float(st["m"][li][at]), "v": v,
+                    "sqrt_v_hat_over_eps": math.sqrt(v / c2) / ocfg.eps,
+                    "grads": [float(g[li][at]) for g in gs],
+                    "leaf_max_grads": [float(np.abs(g[li]).max())
+                                       for g in gs]}
+            rows.append(row)
+    rows.sort(key=lambda r: -r["d_over_sum_lr"])
+    for r in rows[:most]:
+        say(f"  13a tail {r['leaf']}{r['index']}: {r['d_over_sum_lr']:.4g} "
+            f"of sum(lr); " + "; ".join(
+                f"{side} master {r[side]['master']:.7g} m {r[side]['m']:.4g} "
+                f"v {r[side]['v']:.4g} sqrt(v_hat)/eps "
+                f"{r[side]['sqrt_v_hat_over_eps']:.4g} grads "
+                + "/".join(f"{g:.4g}" for g in r[side]["grads"])
+                + " (leaf max " + "/".join(
+                    f"{g:.3g}" for g in r[side]["leaf_max_grads"]) + ")"
+                for side in ("card", "cpu")))
+    return rows
 
 
 def train_flops(cfg, n_params, batch, seq):
     """(model FLOPs a step, the remat recompute's FLOPs, the formula):
-    6 N T over the parameters that multiply (the embedding is a lookup)
-    plus PaLM's attention term 12 L H hd S T (the plain path computes
-    the full S x S scores); remat runs each layer's forward again (2 N T
-    without the head, 4 L H hd S T), the chunked CE the head's, and the
-    checkpointed query blocks of S > 1024 the attention once more."""
+    6 N T over the parameters that multiply a token (the embedding is a
+    lookup; of an MoE layer's experts only the top k) plus PaLM's
+    attention term 12 L H hd S T (the plain path computes the full S x S
+    scores); remat runs each layer's forward again (2 N T without the
+    head, 4 L H hd S T), the chunked CE the head's, and the checkpointed
+    query blocks of S > 1024 the attention once more."""
+    from repro_torch.models import transformer as tf
     L, H, hd = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim
     T = batch * seq
     n_mm = n_params - (0 if cfg.tie_embeddings
                        else cfg.padded_vocab * cfg.d_model)
+    if cfg.moe is not None:
+        m = cfg.moe
+        moe_layers = tf.n_groups(cfg) * sum(
+            ml == "moe" for _, ml in tf.layer_pattern(cfg))
+        mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+        n_mm -= moe_layers * (m.n_experts - m.top_k) * mats * cfg.d_model \
+            * m.d_ff
     attn = 4 * L * H * hd * seq * T            # one forward's scores + PV
     model = 6 * n_mm * T + 3 * attn
     recompute = 2 * n_mm * T + attn * (2 if seq > 1024 else 1)
     formula = (f"6 N T + 12 L H hd S T = 6 x {n_mm} x {T} + 12 x {L} x {H} "
-               f"x {hd} x {seq} x {T}; remat recompute 2 N T + "
+               f"x {hd} x {seq} x {T}"
+               + (" (N: the top-k experts' share of each MoE layer)"
+                  if cfg.moe is not None else "")
+               + f"; remat recompute 2 N T + "
                f"{'8' if seq > 1024 else '4'} L H hd S T")
     return model, recompute, formula
 
 
-def full_train_run(torch, ops, dev, batch):
-    """13 (b) at one batch size: TRAIN_STEPS steps, the last TRAIN_TIMED
-    timed, one profiled step, microbatches 2 against 1, one int8_wire
-    step. Raises torch.cuda.OutOfMemoryError when it does not fit."""
-    from repro_torch import configs
+def train_run(torch, ops, dev, cfg, batch, steps, timed):
+    """``cfg`` at full width: fp32 masters from TRAIN_SEED, bf16 compute,
+    remat, AdamW at TRAIN_LR with TRAIN_WARMUP; ``steps`` steps over
+    SyntheticLM batches of ``batch`` x TRAIN_SEQ tokens with the launch
+    counters and the peak memory reset just before, the last ``timed``
+    timed, then one profiled step. Returns (model, state, step, src,
+    out). Raises torch.cuda.OutOfMemoryError when it does not fit."""
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import model_zoo, pdefs
+    from repro_torch.models import model_zoo
     from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import make_train_step
-    cfg = configs.get_config(TRAIN_ARCH)
     model = model_zoo.build(cfg, s_max=TRAIN_SEQ)
     t0 = time.perf_counter()
     state = opt.init_state(model.init(TRAIN_SEED, device=dev))
@@ -3226,25 +3503,63 @@ def full_train_run(torch, ops, dev, batch):
     src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=TRAIN_SEED)
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    times, losses, norms = [], [], []
-    for i in range(TRAIN_STEPS):
+    times, metrics = [], []
+    for i in range(steps):
         b = src.batch(i)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         state, m = step(state, b)
-        losses.append(float(m["loss"]))
+        m = {k: float(v) for k, v in m.items()}
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
-        norms.append(float(m["grad_norm"]))
+        metrics.append(m)
     peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
     check(all(map(math.isfinite, losses + norms)),
-          f"13b: non-finite loss or grad norm: {losses} {norms}")
+          f"{cfg.name}: non-finite loss or grad norm: {losses} {norms}")
     box = {}
-    b = src.batch(TRAIN_STEPS)
+    b = src.batch(steps)
     rows, wall = profile_rows(torch, lambda: box.update(r=step(state, b)))
     state, m = box.pop("r")
-    check(math.isfinite(float(m["loss"])), "13b: profiled step non-finite")
+    check(math.isfinite(float(m["loss"])),
+          f"{cfg.name}: profiled step non-finite")
     busy = sum(ms for _, ms, _ in rows)
+    timed_ms = sorted(times[-timed:])
+    med = (timed_ms[(timed - 1) // 2] + timed_ms[timed // 2]) / 2
+    flops, recompute, formula = train_flops(cfg, model.n_params(), batch,
+                                            TRAIN_SEQ)
+    out = {
+        "arch": cfg.name, "n_params": model.n_params(), "batch": batch,
+        "seq": TRAIN_SEQ, "tokens_per_step": batch * TRAIN_SEQ,
+        "init_s": init_s, "step_ms": times, "timed": timed,
+        "step_ms_median": med,
+        "step_ms_min": timed_ms[0], "step_ms_max": timed_ms[-1],
+        "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3),
+        "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+        "moe_aux": [m["moe_aux"] for m in metrics],
+        "moe_z": [m["moe_z"] for m in metrics],
+        "profiled_wall_ms": wall, "profiled_device_ms": busy,
+        "busy_share": busy / wall, "top_ops": rows[:12],
+        "model_flops": flops, "recompute_flops": recompute,
+        "flops_formula": formula,
+        "mfu": flops / (med / 1e3) / BF16_PEAK_OPS_PER_S,
+        "hfu": (flops + recompute) / (med / 1e3) / BF16_PEAK_OPS_PER_S}
+    return model, state, step, src, out
+
+
+def full_train_run(torch, ops, dev, batch):
+    """13 (b) at one batch size: TRAIN_STEPS steps, the last TRAIN_TIMED
+    timed, one profiled step, microbatches 2 against 1, one int8_wire
+    step. Raises torch.cuda.OutOfMemoryError when it does not fit."""
+    from repro_torch import configs
+    from repro_torch.models import pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+    model, state, _, src, out = train_run(
+        torch, ops, dev, configs.get_config(TRAIN_ARCH), batch, TRAIN_STEPS,
+        TRAIN_TIMED)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
     # microbatches 2 against 1 on one batch: the k=1 loss is the forward
     # the k=1 step would take on these masters
     b = src.batch(TRAIN_STEPS + 1)
@@ -3265,69 +3580,62 @@ def full_train_run(torch, ops, dev, batch):
     counts = ops.launches()
     check(all(n == 0 for n in counts.values()),
           f"13b: the training steps launched kernels: {counts}")
-    timed = sorted(times[-TRAIN_TIMED:])
-    med = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
-    flops, recompute, formula = train_flops(cfg, model.n_params(), batch,
-                                            TRAIN_SEQ)
-    return {
-        "arch": TRAIN_ARCH, "n_params": model.n_params(), "batch": batch,
-        "seq": TRAIN_SEQ, "tokens_per_step": batch * TRAIN_SEQ,
-        "init_s": init_s, "step_ms": times, "step_ms_median": med,
-        "step_ms_min": timed[0], "step_ms_max": timed[-1],
-        "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3),
-        "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
-        "profiled_wall_ms": wall, "profiled_device_ms": busy,
-        "busy_share": busy / wall, "top_ops": rows[:12],
-        "model_flops": flops, "recompute_flops": recompute,
-        "flops_formula": formula,
-        "mfu": flops / (med / 1e3) / BF16_PEAK_OPS_PER_S,
-        "hfu": (flops + recompute) / (med / 1e3) / BF16_PEAK_OPS_PER_S,
-        "microbatch": {"loss_k1": loss1, "loss_k2": loss2,
-                       "grad_norm_k2": float(m2["grad_norm"])},
-        "int8_wire": {"loss": float(m8["loss"]), "grad_norm": gn8},
-        "launches": counts}
+    out.update({"microbatch": {"loss_k1": loss1, "loss_k2": loss2,
+                               "grad_norm_k2": float(m2["grad_norm"])},
+                "int8_wire": {"loss": float(m8["loss"]), "grad_norm": gn8},
+                "launches": counts})
+    return out
+
+
+def fit_batch(torch, run, label):
+    """``run(batch)`` at TRAIN_BATCH, halved while it does not fit on the
+    card (widths and depth never cut); the cut is printed."""
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, 1):
+        try:
+            out = run(batch)
+        except torch.cuda.OutOfMemoryError:
+            out = None
+        if out is not None:
+            out["batch_cut"] = out["batch"] != TRAIN_BATCH
+            return out
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"{label}: batch {batch} x {TRAIN_SEQ} does not fit on the "
+            f"card; the batch is cut")
+    raise CheckFailed(f"{label}: the model does not train at batch 1")
+
+
+def train_summary(t):
+    """The timed steps' line shared by 13b and 14c."""
+    return (f"({t['n_params'] / 1e9:.3f} B params, fp32 masters, bf16 "
+            f"compute, remat) at {t['batch']} x {t['seq']} tokens"
+            + (" (batch cut)" if t["batch_cut"] else "")
+            + f": step {t['step_ms_median']:.1f} ms median of the last "
+            f"{t['timed']} ({t['step_ms_min']:.1f}-{t['step_ms_max']:.1f}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mem_gb']:.2f} "
+            f"GB; loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; "
+            f"profiled step wall {t['profiled_wall_ms']:.1f} ms, device busy "
+            f"{100 * t['busy_share']:.1f}%; model FLOPs "
+            f"{t['model_flops']:.4g} ({t['flops_formula']}), "
+            f"{100 * t['mfu']:.2f}% of the bf16 dense peak "
+            f"({BF16_PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s), with the "
+            f"recompute ({t['recompute_flops']:.4g}) {100 * t['hfu']:.2f}%")
 
 
 def phase_train_full(torch, ops, dev):
     """13 (b): qwen2-1.5b at full width and depth; a batch that does not
     fit is halved (widths and depth never cut) and the cut printed."""
-    out = None
-    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, 1):
-        try:
-            out = full_train_run(torch, ops, dev, batch)
-        except torch.cuda.OutOfMemoryError:
-            pass
-        if out is not None:
-            break
-        gc.collect()
-        torch.cuda.empty_cache()
-        say(f"phase 13b: batch {batch} x {TRAIN_SEQ} does not fit on the "
-            f"card; the batch is cut")
-    if out is None:
-        raise CheckFailed("13b: the model does not train at batch 1")
-    out["batch_cut"] = out["batch"] != TRAIN_BATCH
-    t = out
+    t = fit_batch(torch, lambda b: full_train_run(torch, ops, dev, b),
+                  "phase 13b")
     say(f"phase 13b training {TRAIN_ARCH} full width and depth "
-        f"({t['n_params'] / 1e9:.3f} B params, fp32 masters, bf16 compute, "
-        f"remat) at {t['batch']} x {t['seq']} tokens"
-        + (" (batch cut)" if t["batch_cut"] else "")
-        + f": step {t['step_ms_median']:.1f} ms median of the last "
-        f"{TRAIN_TIMED} ({t['step_ms_min']:.1f}-{t['step_ms_max']:.1f}), "
-        f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mem_gb']:.2f} GB; "
-        f"loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; profiled step "
-        f"wall {t['profiled_wall_ms']:.1f} ms, device busy "
-        f"{100 * t['busy_share']:.1f}%; model FLOPs {t['model_flops']:.4g} "
-        f"({t['flops_formula']}), {100 * t['mfu']:.2f}% of the bf16 dense "
-        f"peak ({BF16_PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s), with the "
-        f"recompute ({t['recompute_flops']:.4g}) "
-        f"{100 * t['hfu']:.2f}%; 2 microbatches' loss "
-        f"{t['microbatch']['loss_k2']:.5f} against "
+        + train_summary(t)
+        + f"; 2 microbatches' loss {t['microbatch']['loss_k2']:.5f} against "
         f"{t['microbatch']['loss_k1']:.5f}; int8_wire grad norm "
         f"{t['int8_wire']['grad_norm']:.4g}; kernel launches "
         f"{t['launches']}")
     say("phase 13b top device ops (profiled step): " + ", ".join(
         f"{k[:56]} {ms:.2f} ms x{n}" for k, ms, n in t["top_ops"][:8]))
-    return out
+    return t
 
 
 def phase_train_resume(torch, np, dev):
@@ -3451,6 +3759,110 @@ def phase_train(torch, np, ops, dev):
     return out
 
 
+# ---------------- phase 14: MoE ----------------
+
+def moe_flash(torch, ops, ref, rec, label):
+    """The flash kernel on the first MoE prefill layer's inputs (head dim
+    64) against its plain version, and its time beside SDPA's."""
+    q, k, v, causal = rec.flash_args
+    kern = rec.orig[2]
+    got, want = kern(q, k, v, causal), ref.flash_attention_ref(q, k, v, causal)
+    ok, err = close(got, want, FLASH_TOL["float32"], FLASH_TOL["float32"])
+    check(ok, f"{label}: flash_attention != plain on the prefill's inputs "
+              f"(max abs err {err})")
+    out = {"shape": f"q {list(q.shape)}, k/v {list(k.shape)} {q.dtype}",
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: kern(q, k, v, causal), reps=10),
+           "sdpa_ms": cuda_ms(lambda: sdpa_call(torch, q, k, v, causal),
+                              reps=10)}
+    say(f"{label} flash_attention at {out['shape']}: == plain (max abs err "
+        f"{err:.3g}), {out['ms']:.4f} ms per call (SDPA "
+        f"{out['sdpa_ms']:.4f} ms)")
+    return out
+
+
+def moe_train_run(torch, ops, dev, moe_mod, batch):
+    """14 (c) at one batch size: MOE_ARCH trained as 13b, then two
+    forwards of the loss on one batch route bit for bit alike."""
+    from repro_torch import configs
+    from repro_torch.models import pdefs
+    model, state, _, src, out = train_run(
+        torch, ops, dev, configs.get_config(MOE_ARCH), batch,
+        MOE_TRAIN_STEPS, MOE_TRAIN_TIMED)
+    b = src.batch(MOE_TRAIN_STEPS + 1)
+    routes = RouteRecorder(moe_mod)
+    runs = []
+    with torch.no_grad():
+        p16 = pdefs.tree_map(lambda x: x.to(torch.bfloat16), state.master)
+        for _ in range(2):
+            routes.start()
+            loss = model.loss_fn(p16, b)[0]
+            torch.cuda.synchronize()
+            runs.append((routes.stop(), loss))
+        del p16
+    check(len(runs[0][0]) == model.cfg.n_layers
+          and same_routing(torch, runs[0][0], runs[1][0])
+          and torch.equal(runs[0][1], runs[1][1]),
+          "14c: two bf16 forwards of one batch routed or computed "
+          "differently")
+    counts = ops.launches()
+    check(all(n == 0 for n in counts.values()),
+          f"14c: the training steps launched kernels: {counts}")
+    out["launches"] = counts
+    return out
+
+
+def phase_moe(torch, np, ops, ref, dev, lm, moe_mod):
+    """Phase 14: (a) MOE_ARCH served, forked and profiled, (b)
+    MOE_BIG_ARCH at MOE_BIG_LAYERS layers served, (c) MOE_ARCH trained.
+    Returns the detail with the flash and rowclone launches of (a) and
+    (b)."""
+    configs, _, engine_mod = lm
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = configs.get_config(MOE_ARCH)
+    flash_n, out["serve"], model, params, prompts, rec = phase_serve(
+        torch, np, ops, ref, dev, lm, moe_mod, cfg, "phase 14a")
+    out["flash_hd64"] = moe_flash(torch, ops, ref, rec, "phase 14a")
+    rc_n, out["fork"], cache1, fork = phase_fork(
+        torch, ops, dev, lm, model, params, prompts, label="phase 14a")
+    fork_engine = engine_mod.ServeEngine(model, params, model.s_max)
+    out["profile"] = phase_profile(
+        torch, model, params, prompts, fork,
+        lambda: fork_engine.fork_cache(cache1, FORK_N), label="phase 14a")
+    del model, params, rec, cache1, fork, fork_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    big = configs.get_config(MOE_BIG_ARCH).scaled(n_layers=MOE_BIG_LAYERS)
+    n, out["serve_big"], model, params, prompts, rec = phase_serve(
+        torch, np, ops, ref, dev, lm, moe_mod, big, "phase 14b")
+    flash_n += n
+    cache = engine_mod.pad_cache_to(rec.run["prefill"][1], model.s_max)
+    out["profile_big"] = phase_profile(torch, model, params, prompts, cache,
+                                       None, label="phase 14b")
+    del model, params, rec, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = out["train"] = fit_batch(
+        torch, lambda b: moe_train_run(torch, ops, dev, moe_mod, b),
+        "phase 14c")
+    say(f"phase 14c training {MOE_ARCH} full width and depth "
+        + train_summary(t)
+        + f"; moe_aux {t['moe_aux'][0]:.5f} -> {t['moe_aux'][-1]:.5f}, "
+        f"moe_z {t['moe_z'][0]:.5f} -> {t['moe_z'][-1]:.5f} (first and last "
+        f"step); two bf16 forwards routed bit for bit alike; kernel "
+        f"launches {t['launches']}")
+    say("phase 14c top device ops (profiled step): " + ", ".join(
+        f"{k[:56]} {ms:.2f} ms x{n}" for k, ms, n in t["top_ops"][:8]))
+    out.update(flash_launches=flash_n, rowclone_launches=rc_n,
+               seconds=time.perf_counter() - t_phase)
+    say(f"phase 14 MoE: {out['seconds']:.1f} s; flash_attention launches "
+        f"{flash_n}, rowclone_copy launches {rc_n}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -3470,7 +3882,7 @@ def main(argv=None):
                                       timescale, traces)
         from repro_torch import configs, service
         from repro_torch.kernels import ops, ref
-        from repro_torch.models import model_zoo
+        from repro_torch.models import model_zoo, moe as moe_mod
         from repro_torch.serve import engine as engine_mod
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -3546,7 +3958,8 @@ def main(argv=None):
         lm = (configs, model_zoo, engine_mod)
         report["flash_grid_err"] = phase_lm_kernels(torch, ops, ref, dev)
         flash_n, report["serve"], model, params, prompts, lm_rec = \
-            phase_serve(torch, np, ops, ref, dev, lm)
+            phase_serve(torch, np, ops, ref, dev, lm, moe_mod,
+                        configs.get_config(LM_ARCH), "phase 9")
         rc_n, report["fork"], cache1, fork = phase_fork(
             torch, ops, dev, lm, model, params, prompts)
         fork_engine = engine_mod.ServeEngine(model, params, model.s_max)
@@ -3560,6 +3973,14 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         report["train"] = phase_train(torch, np, ops, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["moe"] = phase_moe(torch, np, ops, ref, dev, lm, moe_mod)
+        for k in kernels:
+            k["launches"] += {
+                "flash_attention": report["moe"]["flash_launches"],
+                "rowclone_copy": report["moe"]["rowclone_launches"]}.get(
+                    k["name"], 0)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

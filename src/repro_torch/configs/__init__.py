@@ -5,8 +5,8 @@ Every assigned architecture is a module exposing ``CONFIG: ArchConfig``.
 launchers goes through here.
 
 A copy of the reference package's ``repro.configs`` (pure data), so that
-the port imports nothing of ``repro``; only the dense family builds in
-the port so far (``repro_torch.models.model_zoo``).
+the port imports nothing of ``repro``; the dense and MoE families build
+in the port so far (``repro_torch.models.model_zoo``).
 """
 from __future__ import annotations
 

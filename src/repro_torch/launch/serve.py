@@ -1,4 +1,4 @@
-"""Serving launcher: batched greedy generation for a dense architecture.
+"""Serving launcher: batched greedy generation for a dense or MoE LM.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \
       --preset tiny --batch 4 --prompt-len 128 --new 16 [--device cpu]

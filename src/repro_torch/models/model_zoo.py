@@ -1,9 +1,10 @@
 """Model zoo: build per-architecture functional models.
 
 ``build(cfg, s_max)`` returns a :class:`Model` whose functions train and
-serve the decoder-only dense LM: ``loss_fn`` (train), ``prefill_fn`` and
-``decode_fn`` (serve). The VLM and the encoder-decoder are later slices
-of the port (ROADMAP Queue A 12) and raise ``NotImplementedError``.
+serve the decoder-only LM, dense or MoE: ``loss_fn`` (train),
+``prefill_fn`` and ``decode_fn`` (serve). The VLM and the
+encoder-decoder are later slices of the port (ROADMAP Queue A 12) and
+raise ``NotImplementedError``, as do mamba and rwkv layers.
 
 The prefill takes the flash kernel by default (``use_flash=True``): the
 reference defaults to its jnp path only for its dry run, which the port
@@ -99,20 +100,21 @@ def _build_lm(cfg, s_max, use_flash=True, remat=True,
     def loss_fn(params, batch):
         """(loss, {"ce", "moe_aux", "moe_z"}); ``batch`` holds int
         ``tokens`` and ``targets`` ``[B, S]`` on any device (moved to the
-        parameters'). The aux terms are 0: no MoE block yet."""
+        parameters'). The loss is ``ce + moe_aux + moe_z``, the aux terms
+        summed over the MoE layers (0 for a dense model)."""
         dev = params["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
         targets = torch.as_tensor(batch["targets"], device=dev)
         x = tf.embed_tokens(params, cfg, tokens)
         positions = torch.arange(x.shape[1], device=dev)
-        h = tf.forward_train(params, cfg, x, positions, remat=remat,
-                             use_flash=False)
+        h, aux = tf.forward_train(params, cfg, x, positions, remat=remat,
+                                  use_flash=False)
         ce = _ce_loss_chunked(
             cfg, lambda hi: tf.logits_from_hidden(params, cfg, hi), h,
             targets)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        loss = ce + zero + zero
-        return loss, {"ce": ce, "moe_aux": zero, "moe_z": zero}
+        loss = ce + aux["moe_aux"] + aux["moe_z"]
+        return loss, {"ce": ce, "moe_aux": aux["moe_aux"],
+                      "moe_z": aux["moe_z"]}
 
     def prefill_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"],

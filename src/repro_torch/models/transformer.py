@@ -3,10 +3,11 @@
 A *pattern* of period P describes each layer position's (mixer, mlp)
 pair; parameters are stacked over ``n_layers // P`` groups, and the
 forward passes loop over the groups (the reference scans them with
-``lax.scan``). The port builds the dense pattern ``("attn", "dense")``;
-mamba, rwkv and MoE positions raise ``NotImplementedError`` (ROADMAP
-Queue A 12). ``forward_train`` is differentiable (``loss_fn``); the
-prefill and decode run under ``torch.no_grad``.
+``lax.scan``). The port builds attention mixers with dense or MoE MLPs
+(``("attn", "dense")``, ``("attn", "moe")``); mamba and rwkv positions
+raise ``NotImplementedError`` (ROADMAP Queue A 12). ``forward_train`` is
+differentiable (``loss_fn``) and returns the MoE aux losses summed over
+the layers; the prefill and decode run under ``torch.no_grad``.
 
 Parameters and caches are nested dicts of tensors with the reference's
 structure and its stacked ``[G, ...]`` axis, so the reference's trees
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import pdefs
 from repro_torch.models.pdefs import ParamDef, stack_defs
 
@@ -61,7 +63,6 @@ _NOT_PORTED = {
     "mamba": "mamba mixers are not ported yet (ROADMAP Queue A 12: mamba hybrid)",
     "rwkv": "rwkv time mix is not ported yet (ROADMAP Queue A 12: rwkv)",
     "rwkv_cm": "rwkv channel mix is not ported yet (ROADMAP Queue A 12: rwkv)",
-    "moe": "MoE blocks are not ported yet (ROADMAP Queue A 12: MoE)",
 }
 
 
@@ -80,7 +81,8 @@ def _pos_defs(cfg, mixer, mlp):
     return {"ln1": ParamDef((d,), ("hidden",), init="zeros"),
             "ln2": ParamDef((d,), ("hidden",), init="zeros"),
             "mixer": attn.attn_defs(cfg),
-            "mlp": L.mlp_defs(d, cfg.d_ff, cfg.act)}
+            "mlp": (moe_mod.moe_defs(cfg) if mlp == "moe"
+                    else L.mlp_defs(d, cfg.d_ff, cfg.act))}
 
 
 def lm_defs(cfg, std=0.02):
@@ -142,11 +144,21 @@ def _rope_sc(cfg, positions):
     return L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
+def _mlp(cfg, ml, p, h):
+    """The position's MLP: (y, aux) with the MoE aux losses, or None."""
+    if ml == "moe":
+        return moe_mod.moe_apply(p, cfg, h)
+    return L.mlp_apply(p, h, cfg.act), None
+
+
 def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash, mode="prefill"):
-    """Apply one pattern group over a full sequence. Returns (x, kv) with
-    each attention position's (k, v) in the compute dtype for a prefill,
-    kv None in ``mode="train"`` (nothing kept past the group)."""
+    """Apply one pattern group over a full sequence. Returns (x, kv, aux)
+    with each attention position's (k, v) in the compute dtype for a
+    prefill, kv None in ``mode="train"`` (nothing kept past the group),
+    and aux the group's MoE aux losses summed over its positions (0.0
+    without an MoE position)."""
     kv = {} if mode == "prefill" else None
+    aux = {"moe_aux": 0.0, "moe_z": 0.0}
     for i, (mx, ml) in enumerate(pat):
         p = params_g[f"p{i}"]
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -156,8 +168,11 @@ def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash, mode="prefill"):
             kv[f"p{i}"] = kv_i
         x = x + y
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h, cfg.act)
-    return x, kv
+        y, a = _mlp(cfg, ml, p["mlp"], h)
+        if a is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+        x = x + y
+    return x, kv, aux
 
 
 def _block_decode(cfg, pat, params_g, x, rope_sc, cache_g, pos: int):
@@ -171,29 +186,34 @@ def _block_decode(cfg, pat, params_g, x, rope_sc, cache_g, pos: int):
                                 pos)
         x = x + y
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h, cfg.act)
+        x = x + _mlp(cfg, ml, p["mlp"], h)[0]
     return x
 
 
 def forward_train(params, cfg, x, positions, remat=True, use_flash=True):
-    """x ``[B, S, d]`` embedded input -> final-normed hidden states.
+    """x ``[B, S, d]`` embedded input -> (final-normed hidden states,
+    {"moe_aux", "moe_z"}): the MoE aux losses summed over the groups,
+    float32 scalars (0 without an MoE position).
 
     With ``remat`` each layer group is recomputed in the backward pass
     (the reference's ``jax.checkpoint`` of its scan body), so only the
-    groups' inputs are kept. ``loss_fn`` passes ``use_flash=False``: the
-    flash kernel has no backward. The reference also returns the MoE aux
-    losses; the port builds no MoE block yet (ROADMAP Queue A 12), so
-    they are 0 and ``loss_fn`` adds them itself."""
+    groups' inputs are kept; the recompute routes as the first pass did
+    (``moe_apply``'s forward is deterministic). ``loss_fn`` passes
+    ``use_flash=False``: the flash kernel has no backward."""
     pat = layer_pattern(cfg)
     rope_sc = _rope_sc(cfg, positions)
 
     def body(x, params_g):
-        return _block_seq(cfg, pat, params_g, x, rope_sc, use_flash,
-                          mode="train")[0]
+        x, _, aux = _block_seq(cfg, pat, params_g, x, rope_sc, use_flash,
+                               mode="train")
+        return x, aux["moe_aux"], aux["moe_z"]
 
+    am = az = torch.zeros((), dtype=torch.float32, device=x.device)
     for params_g in unstack_groups(params["blocks"], n_groups(cfg)):
-        x = L.remat(body, x, params_g) if remat else body(x, params_g)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a, z = L.remat(body, x, params_g) if remat else body(x, params_g)
+        am, az = am + a, az + z
+    return (L.rms_norm(x, params["final_norm"], cfg.norm_eps),
+            {"moe_aux": am, "moe_z": az})
 
 
 def forward_prefill(params, cfg, x, positions, s_max,
@@ -207,8 +227,8 @@ def forward_prefill(params, cfg, x, positions, s_max,
     rope_sc = _rope_sc(cfg, positions)
     cache = init_cache(cfg, x.shape[0], s_max, cache_dtype, x.device)
     for g in range(n_groups(cfg)):
-        x, kv = _block_seq(cfg, pat, group_params(params["blocks"], g), x,
-                           rope_sc, use_flash)
+        x, kv, _ = _block_seq(cfg, pat, group_params(params["blocks"], g),
+                              x, rope_sc, use_flash)
         for pos, (k, v) in kv.items():
             cache[pos]["k"][g] = k
             cache[pos]["v"][g] = v

@@ -1082,3 +1082,59 @@ def test_two_fp32_train_steps_on_the_card_match_the_cpu(cuda_device):
     assert d.max() <= chip_smoke.TRAIN_MASTER_BOUND * sum_lr
     assert (d > chip_smoke.TRAIN_MASTER_LR_TOL * sum_lr).mean() \
         <= chip_smoke.TRAIN_MASTER_TAIL
+
+
+@pytest.mark.cuda
+def test_moe_prefill_and_train_step_on_the_card_match_the_cpu(cuda_device):
+    """A tiny granite-moe (4 experts top 2, as tests/test_torch_moe.py;
+    head dim 64, the smallest the flash kernel takes) on the card against
+    the CPU, the same float32 weights: the prefill
+    (flash route, S = 128) at tests/test_torch_lm.py's float32 logits
+    tolerance with the same routing in every layer, routing twice alike
+    on the card, and one float32 train step's loss and moe_aux / moe_z
+    at rtol 1e-5 (TF32 off)."""
+    from repro_torch import configs
+    from repro_torch.models import model_zoo, moe as moe_mod, pdefs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+    cfg = configs.get_config("granite_moe_1b_a400m").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=512, head_dim=64,
+        moe=configs.MoEConfig(n_experts=4, top_k=2, d_ff=64))
+    model = model_zoo.build(cfg, s_max=128)
+    params = model.init(0, device="cpu")
+    toks = np.random.RandomState(7).randint(0, 512, (2, 129))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for dev in ("cpu", cuda_device, cuda_device):
+            routes = chip_smoke.RouteRecorder(moe_mod)
+            p = pdefs.tree_map(lambda t: t.to(dev, copy=True), params)
+            ops.reset_launches()
+            routes.start()
+            try:
+                with torch.no_grad():
+                    logits, _ = model.prefill_fn(p, {"tokens": toks[:, :128]})
+            finally:
+                calls = routes.stop()
+            launches = ops.launches()["flash_attention"]
+            state, m = make_train_step(
+                model, opt.AdamWConfig(lr=1e-2, warmup=5),
+                compute_dtype=torch.float32)(
+                    opt.init_state(p), {"tokens": toks[:, :-1],
+                                        "targets": toks[:, 1:]})
+            runs.append((logits.cpu(), [{k: v.cpu() for k, v in c.items()}
+                                        for c in calls], launches,
+                         {k: float(v) for k, v in m.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    (cl, cr, cn, cm), (gl, gr, gn, gm), (gl2, gr2, _, _) = runs
+    assert (cn, gn) == (0, cfg.n_layers)
+    np.testing.assert_allclose(gl.numpy(), cl.numpy(), rtol=1e-4, atol=1e-5)
+    for a, b in zip(gr, cr):
+        assert torch.equal(a["idx"], b["idx"]) and torch.equal(a["keep"],
+                                                                b["keep"])
+    assert chip_smoke.same_routing(torch, gr, gr2) and torch.equal(gl, gl2)
+    for k in ("loss", "moe_aux", "moe_z"):
+        np.testing.assert_allclose(gm[k], cm[k], rtol=1e-5, err_msg=k)

@@ -61,6 +61,7 @@ torch.set_num_threads(2)
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16_ULP = 2.0 ** -7
 DENSE = ("qwen3_8b", "qwen2_1_5b", "gemma_7b", "glm4_9b")
+MOE = ("granite_moe_1b_a400m", "qwen3_moe_30b_a3b")
 
 
 def port_cfg(jcfg):
@@ -365,8 +366,10 @@ def test_prefill_decode_match_forward_train():
     cfg = pmodel.cfg
     tokens = np.random.RandomState(8).randint(0, jcfg.vocab_size, (1, S))
     tt = torch.from_numpy(tokens)
-    h = ptf.forward_train(pparams, cfg, ptf.embed_tokens(pparams, cfg, tt),
-                          torch.arange(S), use_flash=False)
+    h, aux = ptf.forward_train(pparams, cfg,
+                               ptf.embed_tokens(pparams, cfg, tt),
+                               torch.arange(S), use_flash=False)
+    assert float(aux["moe_aux"]) == 0.0 and float(aux["moe_z"]) == 0.0
     full = ptf.logits_from_hidden(pparams, cfg, h)
     jh, _ = jtf.forward_train(jparams, jcfg,
                               jtf.embed_tokens(jparams, jcfg,
@@ -427,7 +430,7 @@ def test_fork_cache_matches_jax_kernel_fork():
 
 # ---------------- structure and entry points ----------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_full_width_defs_match_jax(arch):
     """The full-size parameter trees agree leaf for leaf (shapes only;
     nothing is allocated)."""
@@ -442,11 +445,26 @@ def test_full_width_defs_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "rwkv6_3b",
-                                  "qwen3_moe_30b_a3b", "whisper_base",
-                                  "llava_next_34b"])
+                                  "whisper_base", "llava_next_34b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pzoo.build(pconfigs.get_config(arch), s_max=16)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_families_build(arch):
+    """The MoE family builds at full size (definitions only: nothing is
+    allocated), every layer an MoE MLP with the reference's leaves."""
+    model = pzoo.build(pconfigs.get_config(arch), s_max=16)
+    cfg = model.cfg
+    assert ptf.layer_pattern(cfg) == (("attn", "moe"),)
+    mlp = model.defs["blocks"]["p0"]["mlp"]
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    assert {k: v.shape for k, v in mlp.items()} == {
+        "router": (cfg.n_layers, d, E), "up": (cfg.n_layers, E, d, f),
+        "gate": (cfg.n_layers, E, d, f), "down": (cfg.n_layers, E, f, d)}
+    assert model.n_params() == jzoo.build(get_config(arch),
+                                          s_max=16).n_params()
 
 
 def test_loss_fn_raises_and_init_needs_a_device():

@@ -143,9 +143,17 @@ def test_lm_decode_trace_matches_jax(seq_len, max_requests):
                               max_requests=max_requests)
     assert got.n > 0
     _same_trace(want, got)
-    moe = pconfigs.get_config("qwen3_moe_30b_a3b").scaled(n_layers=2)
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        ptr.lm_decode_trace(moe, seq_len, PGeometry())
+    # an MoE arch streams its active share of the parameters
+    jmoe = tiny_cfg("qwen3_moe_30b_a3b")
+    pmoe = pconfigs.get_config("qwen3_moe_30b_a3b").scaled(
+        **{k: getattr(jmoe, k) for k in ("n_layers", "d_model", "n_heads",
+                                         "n_kv_heads", "d_ff", "vocab_size",
+                                         "head_dim")})
+    got = ptr.lm_decode_trace(pmoe, seq_len, PGeometry(),
+                              max_requests=max_requests)
+    assert got.n > 0
+    _same_trace(jtr.lm_decode_trace(jmoe, seq_len, JGeometry(),
+                                    max_requests=max_requests), got)
 
 
 @pytest.mark.parametrize("mode", ["cpu", "rowclone"])

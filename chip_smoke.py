@@ -162,6 +162,20 @@ Phases, one line each:
    timed; ``moe_aux`` / ``moe_z`` of the first and last; model FLOPs over
    the active parameters), two bf16 forwards routed bit for bit alike,
    no kernel launched. (a) and (b)'s flash and rowclone launches join the
+   ``kernels`` line's counts;
+15. the mamba hybrid (the MoE models freed first): (a) jamba-v0.1 at
+   full width and one pattern period, 8 of its 32 layers (7 mamba, 1
+   attention; 4 of the 8 MLPs 16-expert top-2 MoEs), served as phase
+   14a: the prefill launches ``selective_scan`` once a mamba layer and
+   flash once, the kernel route against the plain route (the kernels
+   swapped for their plain versions) on routing, logits and the cache
+   (k / v / conv at phase 9's tolerances, the float32 ``h`` at
+   ``H_CACHE_TOL``), forked and profiled; (b) ``selective_scan`` against
+   its plain version on ``SSM_CASES`` and on the prefill's own inputs,
+   timed there; (c) one pattern period at ``launch.train``'s small widths
+   with jamba's MoE and SSM, 4 x 512 tokens: 3 float32 steps on the card
+   against a CPU process (started before phase 14) at 13a's rules, then
+   bf16 steps timed, no kernel launched. (a)'s launches join the
    ``kernels`` line's counts.
 
 Device ms per launch comes from a profiled window of back-to-back calls
@@ -171,11 +185,12 @@ shows no launch; each entry names its method.
 The engine's entry points launch ``bloom_probe`` and ``slot_scan`` (a
 stream, ``slot_scan``'s window entry, counted as ``slot_scan_window``;
 ``run_ref`` / ``run_ref_many``, ``ref_scan``), the serving engine
-``flash_attention`` and ``rowclone_copy``; the policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
+``flash_attention``, ``selective_scan`` (a mamba layer's prefill) and
+``rowclone_copy``; the policy VM runs inside ``slot_scan`` (``csrc/policy_vm.cuh``) on every
 decision of a policy group, so the batch ``policy_vm`` kernel is checked
 and timed at phase 3's shapes and has no launches on the main path.
-Training (phases 13 and 14c) launches none of the kernels and adds no
-entry to the ``kernels`` line.
+Training (phases 13, 14c and 15c) launches none of the kernels and adds
+no entry to the ``kernels`` line.
 
 Exits non-zero on any failed check. The last two lines are the card's
 name and power limit, then ``{"ok": true, "device": {...}}``. Details go
@@ -191,6 +206,7 @@ import math
 import multiprocessing
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -210,6 +226,8 @@ REPLACES = {
     "ref_scan": "src/repro/core/emulator.py:735",
     "flash_attention": "src/repro/kernels/flash_attention.py:21",
     "rowclone_copy": "src/repro/kernels/rowclone_copy.py:18",
+    # the associative_scan inside mamba_seq's remat'd lax.scan (:106)
+    "selective_scan": "src/repro/models/mamba.py:63",
 }
 # the window entry is slot_scan.cu's fourth instantiation flag (kStream)
 SOURCES = {name: "src/repro_torch/kernels/csrc/"
@@ -351,6 +369,29 @@ MOE_ARCH, MOE_BIG_ARCH, MOE_BIG_LAYERS = ("granite_moe_1b_a400m",
                                           "qwen3_moe_30b_a3b", 16)
 MOE_TRAIN_STEPS, MOE_TRAIN_TIMED = 7, 5
 MOE_TIE_RTOL = 1e-5
+# phase 15, the mamba hybrid (the MoE phase's models freed first): (a)
+# HYBRID_ARCH at full width and HYBRID_LAYERS of its 32 layers, one
+# pattern period (13.295 B fp32 parameters, 53.2 GB: the full depth's
+# 51.57 B, 206 GB, do not fit one card), served as phase 14a; (b)
+# selective_scan against its plain version on SSM_CASES (batch, tokens,
+# d_inner, d_state: both d_states, batches 1 and 4, token counts that are
+# no multiple of the kernel's 32-token tile, d_inner that leave a tail
+# block, one token, and jamba's prefill) and on the prefill's inputs;
+# (c) one pattern period at launch.train's small widths (the MoE's
+# expert d_ff cut to the small d_ff; 16 experts top 2 and the SSM, chunk
+# 256, kept), HYBRID_TRAIN_BATCH x HYBRID_TRAIN_SEQ tokens (two chunks a
+# layer): TRAIN_SMALL_STEPS float32 steps against the CPU at 13a's rules,
+# then HYBRID_BF16_STEPS bf16 steps timed
+HYBRID_ARCH, HYBRID_LAYERS = "jamba_v0_1_52b", 8
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_BF16_STEPS = 4, 512, 4
+SSM_CASES = [(1, 100, 200, 8), (4, 33, 1000, 16), (4, 300, 64, 8),
+             (1, 1, 16, 16), (4, 1024, 8192, 16)]
+# selective_scan vs plain, y and hT each within SSM_TOL of its largest
+# magnitude: both run the float32 recurrence token by token, the kernel
+# with fused multiply-adds, its own exp and y's N terms summed as a
+# butterfly, and a rounding difference lives on in h for ~1/(1 - dA)
+# tokens
+SSM_TOL = 1e-4
 # kernel vs plain on one attention call: the tolerances of
 # tests/test_kernels.py (the kernel's online softmax sums in another order)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -360,6 +401,10 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # value by one bf16 ulp (2^-7 relative) plus 1e-4 of the leaf's largest
 LOGIT_TOL = 1e-3
 CACHE_RTOL, CACHE_ATOL = 2.0 ** -7, 1e-4
+# a mamba layer's float32 state h after the prefill, kernel route vs
+# plain route: within LOGIT_TOL of the leaf's largest magnitude, as the
+# logits (the routes' float32 differences compound over the layers)
+H_CACHE_TOL = LOGIT_TOL
 
 
 class CheckFailed(Exception):
@@ -2763,19 +2808,23 @@ def phase_lm_kernels(torch, ops, ref, dev):
 
 class LMRecorder:
     """Wraps a model's ``prefill_fn`` / ``decode_fn`` to keep their logits
-    and the prefill cache, and ``ops.flash_attention_bhsd`` to keep the
-    first call's inputs; ``plain_flash`` sends that call to the plain
-    version instead of the kernel."""
+    and a copy of the prefill cache (the decode steps update a mamba
+    layer's states in place), and ``ops.flash_attention_bhsd`` and
+    ``ops.selective_scan`` to keep each one's first call's inputs;
+    ``plain_flash`` sends their calls to the plain versions instead of
+    the kernels."""
 
     def __init__(self, model, ops, ref):
         self.model, self.ops, self.ref = model, ops, ref
         self.orig = (model.prefill_fn, model.decode_fn,
                      ops.flash_attention_bhsd)
-        self.flash_args = None
+        self.orig_scan = ops.selective_scan
+        self.flash_args = self.scan_args = None
         self.run = None
 
     def start(self, plain_flash=False):
         prefill, decode, flash = self.orig
+        scan = self.orig_scan
         run = self.run = {"prefill": None, "steps": [], "prefill_s": 0.0}
 
         def rec_flash(q, k, v, causal=True):
@@ -2784,6 +2833,12 @@ class LMRecorder:
             return (self.ref.flash_attention_ref if plain_flash else flash)(
                 q, k, v, causal)
 
+        def rec_scan(*args):
+            if self.scan_args is None:
+                self.scan_args = args
+            return (self.ref.selective_scan_ref if plain_flash else scan)(
+                *args)
+
         def rec_prefill(params, batch):
             import torch
             torch.cuda.synchronize()
@@ -2791,7 +2846,9 @@ class LMRecorder:
             logits, cache = prefill(params, batch)
             torch.cuda.synchronize()
             run["prefill_s"] += time.perf_counter() - t0
-            run["prefill"] = (logits, cache)
+            run["prefill"] = (logits, {pos: {k: t.clone() for k, t in
+                                             leaves.items()}
+                                       for pos, leaves in cache.items()})
             return logits, cache
 
         def rec_decode(params, cache, token, pos):
@@ -2802,10 +2859,12 @@ class LMRecorder:
         self.model.prefill_fn = rec_prefill
         self.model.decode_fn = rec_decode
         self.ops.flash_attention_bhsd = rec_flash
+        self.ops.selective_scan = rec_scan
 
     def stop(self):
         (self.model.prefill_fn, self.model.decode_fn,
          self.ops.flash_attention_bhsd) = self.orig
+        self.ops.selective_scan = self.orig_scan
         return self.run
 
 
@@ -2945,17 +3004,31 @@ def compare_routes(torch, kern, plain, tokens, tokens_plain, marg, scale,
 def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
     """``cfg`` at full width served through ``ServeEngine.generate_batch``
     (LM_BATCH prompts of LM_PROMPT tokens, LM_NEW new), the launch
-    counters reset just before (one flash launch a layer), then again
-    with flash swapped for its plain version: an MoE model's routing is
-    recorded on both routes (``compare_routes``); the prefill logits and
-    cache of the rows routed alike (every row of a dense model) are held
-    to LOGIT_TOL and CACHE_RTOL / CACHE_ATOL, greedy tokens by their
-    margins. A first prefill warms up and must equal the timed one's
-    routing and logits bit for bit. Returns the flash launches, the
-    detail, and the model, parameters, prompts and LM recorder."""
+    counters reset just before (one flash launch an attention layer, one
+    selective_scan launch a mamba layer), then again with the kernels
+    swapped for their plain versions: an MoE model's routing is recorded
+    on both routes (``compare_routes``); the prefill logits and cache of
+    the rows routed alike (every row of a dense model) are held to
+    LOGIT_TOL and CACHE_RTOL / CACHE_ATOL (a mamba layer's float32 ``h``
+    to H_CACHE_TOL), greedy tokens by their margins. A first prefill
+    warms up and must equal the timed one's routing and logits bit for
+    bit. Returns the flash launches, the detail (every launch count in
+    ``launches``), and the model, parameters, prompts and LM recorder."""
+    from repro_torch.models import transformer as tf
     _, model_zoo, engine_mod = lm
     s_max = LM_PROMPT + LM_NEW
     L = cfg.n_layers
+    pat, G = tf.layer_pattern(cfg), tf.n_groups(cfg)
+    # the layer of each cache slice [g] of position p<i>; the MoE layers
+    # in routing-call order
+    layer = {f"p{i}": [g * len(pat) + i for g in range(G)]
+             for i in range(len(pat))}
+    moe_layers = sorted(x for i, (_, ml) in enumerate(pat) if ml == "moe"
+                        for x in layer[f"p{i}"])
+    want = {k: G * sum(mx == m for mx, _ in pat)
+            for k, m in (("flash_attention", "attn"),
+                         ("selective_scan", "mamba"))}
+    want = {k: n for k, n in want.items() if n}
     model = model_zoo.build(cfg, s_max=s_max)
     t0 = time.perf_counter()
     params = model.init(LM_SEED, device=dev)
@@ -2983,10 +3056,10 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
     counts = ops.launches()
     kroute = routes.stop()
     kern = rec.stop()
-    check(counts["flash_attention"] == L
-          and sum(counts.values()) == L,
-          f"{label}: the generation launched {counts}, not flash_attention "
-          f"once per layer ({L})")
+    check(all(counts[k] == n for k, n in want.items())
+          and sum(counts.values()) == sum(want.values()),
+          f"{label}: the generation launched {counts}, not {want} (one "
+          f"launch a layer that runs the kernel)")
     check(tokens.shape == (LM_BATCH, LM_NEW)
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           f"{label}: generated tokens out of range or of shape "
@@ -3000,8 +3073,9 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
     plain = rec.stop()
 
     (lk, ck), (lp, cp) = kern["prefill"], plain["prefill"]
-    R = len(twice)      # routing calls a forward: one a layer, or none
-    check(R in (0, L), f"{label}: {R} routing calls in a {L}-layer prefill")
+    R = len(twice)      # routing calls a forward: one an MoE layer
+    check(R == len(moe_layers), f"{label}: {R} routing calls in a prefill "
+                                f"of {len(moe_layers)} MoE layers")
     check(same_routing(torch, twice, kroute[:R]) and torch.equal(first, lk),
           f"{label}: two prefills of the same prompts routed or computed "
           f"differently")
@@ -3022,22 +3096,31 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
           f"{logit_err} (> {LOGIT_TOL} x {scale}) on rows routed alike")
     # a layer's cache is computed from its input, which an MoE flip only
     # reaches in later layers
-    cache_err = 0.0
+    cache_err, cache_rel = {}, {}
+    specs = tf.cache_specs(cfg, LM_BATCH, LM_PROMPT, torch.bfloat16)
     for pos in ck:
         for name in ck[pos]:
             a, b = ck[pos][name], cp[pos][name]
-            check(a.dtype == torch.bfloat16 and a.shape == (
-                L, LM_BATCH, LM_PROMPT, cfg.n_kv_heads,
-                cfg.resolved_head_dim), f"{label}: cache {pos}.{name}: "
-                                        f"{a.dtype} {tuple(a.shape)}")
-            tol = CACHE_ATOL * float(b.abs().max())
+            shape, dt = specs[pos][name]
+            check(a.dtype == dt and tuple(a.shape) == shape,
+                  f"{label}: cache {pos}.{name}: {a.dtype} "
+                  f"{tuple(a.shape)}, not {dt} {shape}")
+            top = float(b.abs().max())
+            atol, rtol = ((H_CACHE_TOL * top, 0.0) if name == "h"
+                          else (CACHE_ATOL * top, CACHE_RTOL))
             for r in range(LM_BATCH):
                 f = cmp["first"][r]
-                n = L if f is None or f >= R else f + 1
-                ok, err = close(a[:n, r], b[:n, r], tol, CACHE_RTOL)
+                last = L if f is None or f >= R else moe_layers[f]
+                gs = [g for g, x in enumerate(layer[pos]) if x <= last]
+                if not gs:
+                    continue
+                ok, err = close(a[gs, r], b[gs, r], atol, rtol)
                 check(ok, f"{label}: prefill cache {pos}.{name} row {r}: "
-                          f"kernel route vs plain differ by {err}")
-                cache_err = max(cache_err, err)
+                          f"kernel route vs plain differ by {err} (the "
+                          f"leaf's largest magnitude {top:.4g})")
+                cache_err[name] = max(cache_err.get(name, 0.0), err)
+                rel = cache_rel.setdefault(f"{pos}.{name}", [])
+                rel.append(err / max(top, 1e-30))
     n_tok = LM_BATCH * LM_NEW
     decode_s = t_gen - kern["prefill_s"]
     detail = {"arch": cfg.name, "n_layers": L, "n_params": model.n_params(),
@@ -3048,8 +3131,10 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
               "decode_ms_per_step": decode_s * 1e3 / (LM_NEW - 1),
               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / kern["prefill_s"],
               "flash_launches": counts["flash_attention"],
+              "launches": {k: counts[k] for k in want},
               "logit_err": logit_err, "logit_scale": scale,
               "rows_held": held, "cache_err": cache_err,
+              "cache_err_over_scale": cache_rel,
               "routing": {k: v for k, v in cmp.items()},
               "tokens": tokens.tolist(), "tokens_plain": tokens_plain.tolist(),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3060,8 +3145,8 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
         f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} new, "
         f"{t_gen:.2f} s (prefill {kern['prefill_s']:.3f} s, plain-flash "
         f"prefill {plain['prefill_s']:.3f} s, decode "
-        f"{detail['decode_ms_per_step']:.1f} ms per step); flash_attention "
-        f"launches {counts['flash_attention']}; "
+        f"{detail['decode_ms_per_step']:.1f} ms per step); launches "
+        + ", ".join(f"{k} {counts[k]}" for k in want) + "; "
         + (f"routing: {cmp['decisions']} decisions compared, tokens routed "
            f"differently between the routes: {len(pre)} in the prefill "
            f"(gaps {[float(f'{g:.3g}') for g in pre]}), {len(dec)} in "
@@ -3074,7 +3159,8 @@ def phase_serve(torch, np, ops, ref, dev, lm, moe_mod, cfg, label):
         + "two prefills routed and computed bit for bit alike; logits max "
         f"err "
         f"{logit_err:.3g} (scale {scale:.3g}) on rows {held}, cache max err "
-        f"{cache_err:.3g}, {cmp['tokens_compared']} of {n_tok} greedy "
+        + ", ".join(f"{k} {e:.3g}" for k, e in cache_err.items())
+        + f", {cmp['tokens_compared']} of {n_tok} greedy "
         f"tokens equal, {cmp['rows_split_at_small_margin']} rows split at "
         f"margins <= tolerance")
     return counts["flash_attention"], detail, model, params, prompts, rec
@@ -3113,7 +3199,8 @@ def phase_profile(torch, model, params, prompts, fork, fork_fn,
                                                     {"tokens": prompts}),
                 "decode": lambda: model.decode_fn(
                     params, fork, torch.zeros(
-                        (fork["p0"]["k"].shape[1], 1), dtype=torch.long,
+                        (next(iter(fork["p0"].values())).shape[1], 1),
+                        dtype=torch.long,
                         device=params["embed"].device),
                     LM_PROMPT + LM_NEW - 1)}
         if fork_fn is not None:
@@ -3154,7 +3241,8 @@ def phase_fork(torch, ops, dev, lm, model, params, prompts,
     torch.cuda.synchronize()
     t_fork = time.perf_counter() - t0
     counts = ops.launches()
-    n_leaves = sum(len(v) for v in cache.values())
+    # the attention k / v go through the kernel; mamba states are tiled
+    n_leaves = sum(t.dim() == 5 for v in cache.values() for t in v.values())
     check(counts["rowclone_copy"] == n_leaves * FORK_N,
           f"the fork launched rowclone_copy {counts['rowclone_copy']} times, "
           f"not {n_leaves} x {FORK_N}")
@@ -3177,7 +3265,7 @@ def phase_fork(torch, ops, dev, lm, model, params, prompts,
                                        f"two forks differ")
             check(bool(torch.isfinite(la).all()), "non-finite decode logits")
             tok = la[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
-    leaf = cache["p0"]["k"]
+    leaf = next(t for v in cache.values() for t in v.values() if t.dim() == 5)
     say(f"{label} fork: {FORK_N}-way fork of a {LM_PROMPT}-token cache "
         f"({n_leaves} leaves of {tuple(leaf.shape)} {leaf.dtype}) through "
         f"rowclone_copy, {counts['rowclone_copy']} launches, "
@@ -3288,22 +3376,39 @@ def phase_lm_timing(torch, ops, ref, rec, cache, flash_launches,
 
 # ---------------- phase 13: training ----------------
 
-def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS, grads=None):
-    """``launch.train``'s small preset of TRAIN_ARCH on ``device``: fp32
+def train_cut(cut):
+    """(config, batch, tokens a row) of a CPU-checked training cut:
+    ``"small"`` is launch.train's small preset of TRAIN_ARCH (13a),
+    ``"hybrid"`` one pattern period of HYBRID_ARCH at the small preset's
+    widths with its MoE's expert d_ff cut to the small d_ff (15c)."""
+    from repro_torch.launch.train import PRESETS, preset_config
+    if cut == "small":
+        return (preset_config(TRAIN_ARCH, "small"), TRAIN_SMALL_BATCH,
+                TRAIN_SMALL_SEQ)
+    from repro_torch import configs
+    small = dict(PRESETS["small"], n_layers=HYBRID_LAYERS)
+    cfg = configs.get_config(HYBRID_ARCH)
+    cfg = cfg.scaled(**small, moe=dataclasses.replace(cfg.moe,
+                                                      d_ff=small["d_ff"]))
+    return cfg, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ
+
+
+def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS, grads=None,
+                    cut="small", times=None):
+    """The training cut ``cut`` (``train_cut``) on ``device``: fp32
     masters drawn on the CPU from TRAIN_SEED (the same on every device),
-    then ``steps`` AdamW steps at the ``compute`` dtype over SyntheticLM
-    batches of TRAIN_SMALL_BATCH x TRAIN_SMALL_SEQ tokens. Returns the
-    state and each step's metrics as floats; each step's gradient leaves
-    (before clipping, as host float32 arrays) are appended to ``grads``
-    when it is a list."""
+    then ``steps`` AdamW steps (launch.train's TRAIN_SMALL_OPT) at the
+    ``compute`` dtype over SyntheticLM batches. Returns the state and
+    each step's metrics as floats; each step's gradient leaves (before
+    clipping, as host float32 arrays) are appended to ``grads`` when it
+    is a list, each step's synchronized milliseconds to ``times``."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch.train import preset_config
     from repro_torch.models import model_zoo, pdefs
     from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import make_train_step
-    cfg = preset_config(TRAIN_ARCH, "small")
-    model = model_zoo.build(cfg, s_max=TRAIN_SMALL_SEQ)
+    cfg, batch, seq = train_cut(cut)
+    model = model_zoo.build(cfg, s_max=seq)
     params = pdefs.tree_map(lambda t: t.to(device),
                             model.init(TRAIN_SEED, device="cpu"))
     state = opt.init_state(params)
@@ -3315,56 +3420,85 @@ def small_train_run(device, compute, steps=TRAIN_SMALL_STEPS, grads=None):
     step = make_train_step(model, opt.AdamWConfig(**TRAIN_SMALL_OPT),
                            compute_dtype=getattr(torch, compute),
                            grad_compressor=None if grads is None else keep)
-    src = SyntheticLM(cfg.vocab_size, TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH,
-                      seed=TRAIN_SEED)
+    src = SyntheticLM(cfg.vocab_size, seq, batch, seed=TRAIN_SEED)
     metrics = []
     for i in range(steps):
+        t0 = time.perf_counter()
         state, m = step(state, src.batch(i))
         metrics.append({k: float(v) for k, v in m.items()})
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
     return state, metrics
 
 
-def train_cpu_job():
-    """Phase 13 (a)'s CPU side, in a worker process: the small preset's
-    float32 and bf16 runs; the float32 run's master, m and v as numpy.
-    It leaves two cores to the card's launching thread."""
+def train_cpu_job(cut="small"):
+    """The CPU side of a training check (13a, 15c), in a worker process:
+    the cut's float32 run, and for 13a the bf16 run. Its master, m and v
+    and each step's gradients go to ``.npy`` files in a temporary
+    directory (``out["dir"]``; ``load_cpu_arrays`` maps them), not
+    through the pool's pipe, which moves ~0.1 GB/s. It leaves two cores
+    to the card's launching thread."""
+    import tempfile
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
     import torch
     from repro_torch.models import pdefs
     torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
     t0 = time.perf_counter()
-    out = {"grads": []}
-    state, out["float32"] = small_train_run("cpu", "float32",
-                                            grads=out["grads"])
-    out["state"] = {name: [t.numpy() for t in
-                           pdefs.tree_leaves(getattr(state, name))]
-                    for name in ("master", "m", "v")}
-    _, out["bfloat16"] = small_train_run("cpu", "bfloat16")
+    grads = []
+    state, metrics = small_train_run("cpu", "float32", grads=grads, cut=cut)
+    out = {"float32": metrics,
+           "dir": tempfile.mkdtemp(prefix="chip_smoke_cpu_")}
+
+    def dump(arrays, tag):
+        paths = [os.path.join(out["dir"], f"{tag}_{i}.npy")
+                 for i in range(len(arrays))]
+        for path, a in zip(paths, arrays):
+            np.save(path, a)
+        return paths
+    out["state"] = {name: dump([t.numpy() for t in pdefs.tree_leaves(
+        getattr(state, name))], name) for name in ("master", "m", "v")}
+    out["grads"] = [dump(g, f"grad{i}") for i, g in enumerate(grads)]
+    if cut == "small":
+        _, out["bfloat16"] = small_train_run("cpu", "bfloat16")
     out["s"] = time.perf_counter() - t0
     return out
 
 
-def phase_train_small(torch, np, dev, cpu_job):
-    """13 (a): the small preset on the card against the port's CPU run on
-    the same masters and batches: float32 compute (TF32 off) at the CPU
-    tests' tolerances, bf16 losses within TRAIN_BF16_LOSS_RTOL."""
+def load_cpu_arrays(np, cpu):
+    """``train_cpu_job``'s result with its array files memory-mapped."""
+    cpu = dict(cpu)
+    load = lambda paths: [np.load(p, mmap_mode="r") for p in paths]  # noqa: E731
+    cpu["state"] = {name: load(p) for name, p in cpu["state"].items()}
+    cpu["grads"] = [load(p) for p in cpu["grads"]]
+    return cpu
+
+
+def card_train_f32(dev, cut):
+    """The cut's float32 steps on the card: (metrics, master / m / v as
+    numpy, each step's gradients, the leaf names)."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.models import pdefs
-    card_grads = []
-    state, card32 = small_train_run(dev, "float32", grads=card_grads)
+    grads = []
+    state, metrics = small_train_run(dev, "float32", grads=grads, cut=cut)
     card = {name: [t.cpu().numpy() for t in
                    pdefs.tree_leaves(getattr(state, name))]
             for name in ("master", "m", "v")}
-    leaf_names = list(ckpt._flatten(state.master))
-    del state
-    _, card16 = small_train_run(dev, "bfloat16")
-    cpu = cpu_job.get(timeout=300)
+    return metrics, card, grads, list(ckpt._flatten(state.master))
+
+
+def compare_train(np, label, card32, card, card_grads, names, cpu):
+    """The card's float32 steps against the CPU's at 13a's rules (lr
+    equal, loss and grad norm within TRAIN_F32_RTOL, m and v within
+    TRAIN_MV_TOL of each leaf's largest, the masters in units of the
+    summed lr). Returns (the errors, sum(lr), the masters' tail rows)."""
     sum_lr = sum(m["lr"] for m in card32)
     for a, b in zip(card32, cpu["float32"]):
-        check(a["lr"] == b["lr"], f"13a: lr {a['lr']} != CPU {b['lr']}")
+        check(a["lr"] == b["lr"], f"{label}: lr {a['lr']} != CPU {b['lr']}")
         for k in ("loss", "grad_norm"):
             check(abs(a[k] - b[k]) <= TRAIN_F32_RTOL * abs(b[k]),
-                  f"13a: float32 {k} {a[k]} != CPU {b[k]}")
+                  f"{label}: float32 {k} {a[k]} != CPU {b[k]}")
     err = {}
     for name in ("m", "v"):
         worst = 0.0
@@ -3372,7 +3506,7 @@ def phase_train_small(torch, np, dev, cpu_job):
             scale = max(float(np.abs(w).max()), 1e-30)
             worst = max(worst, float(np.abs(g - w).max()) / scale)
         err[name] = worst
-        check(worst <= TRAIN_MV_TOL, f"13a: float32 {name} differs from "
+        check(worst <= TRAIN_MV_TOL, f"{label}: float32 {name} differs from "
               f"the CPU run by {worst:.3g} of a leaf's largest")
     # masters in units of the summed lr: Adam moves an element by at most
     # ~lr a step whatever its gradient, so an element whose gradient is
@@ -3382,12 +3516,28 @@ def phase_train_small(torch, np, dev, cpu_job):
         card["master"], cpu["state"]["master"])]) / sum_lr
     tail = float((d > TRAIN_MASTER_LR_TOL).mean())
     err["master"], err["master_tail"] = float(d.max()), tail
-    named = master_tail(np, leaf_names, card, cpu["state"], card_grads,
-                        cpu["grads"], sum_lr)
+    named = master_tail(np, names, card, cpu["state"], card_grads,
+                        cpu["grads"], sum_lr, label=label)
     check(err["master"] <= TRAIN_MASTER_BOUND and tail <= TRAIN_MASTER_TAIL,
-          f"13a: float32 masters differ from the CPU run by up to "
+          f"{label}: float32 masters differ from the CPU run by up to "
           f"{err['master']:.3g} of sum(lr), {tail:.3g} of them by more than "
           f"{TRAIN_MASTER_LR_TOL}")
+    return err, sum_lr, named
+
+
+def phase_train_small(torch, np, dev, cpu_job):
+    """13 (a): the small preset on the card against the port's CPU run on
+    the same masters and batches: float32 compute (TF32 off) at the CPU
+    tests' tolerances, bf16 losses within TRAIN_BF16_LOSS_RTOL."""
+    card32, card, card_grads, names = card_train_f32(dev, "small")
+    _, card16 = small_train_run(dev, "bfloat16")
+    cpu = cpu_job.get(timeout=300)
+    try:
+        err, sum_lr, named = compare_train(
+            np, "13a", card32, card, card_grads, names,
+            load_cpu_arrays(np, cpu))
+    finally:
+        shutil.rmtree(cpu["dir"], ignore_errors=True)
     for i, (a, b) in enumerate(zip(card16, cpu["bfloat16"])):
         check(math.isfinite(a["loss"]) and abs(a["loss"] - b["loss"])
               <= TRAIN_BF16_LOSS_RTOL * abs(b["loss"]),
@@ -3408,7 +3558,7 @@ def phase_train_small(torch, np, dev, cpu_job):
 
 
 def master_tail(np, names, card, cpu, card_grads, cpu_grads, sum_lr,
-                most=16):
+                most=16, label="13a"):
     """The float32 master elements beyond TRAIN_MASTER_LR_TOL x sum(lr)
     between the card and the CPU (ROADMAP Queue C 1): leaf and index,
     and on both sides the master, m, v, Adam's denominator sqrt(v_hat)
@@ -3438,7 +3588,8 @@ def master_tail(np, names, card, cpu, card_grads, cpu_grads, sum_lr,
             rows.append(row)
     rows.sort(key=lambda r: -r["d_over_sum_lr"])
     for r in rows[:most]:
-        say(f"  13a tail {r['leaf']}{r['index']}: {r['d_over_sum_lr']:.4g} "
+        say(f"  {label} tail {r['leaf']}{r['index']}: "
+            f"{r['d_over_sum_lr']:.4g} "
             f"of sum(lr); " + "; ".join(
                 f"{side} master {r[side]['master']:.7g} m {r[side]['m']:.4g} "
                 f"v {r[side]['v']:.4g} sqrt(v_hat)/eps "
@@ -3863,6 +4014,161 @@ def phase_moe(torch, np, ops, ref, dev, lm, moe_mod):
     return out
 
 
+# ---------------- phase 15: the mamba hybrid ----------------
+
+def ssm_case(torch, B, S, di, N, device, seed=0):
+    """Seeded ``ops.selective_scan`` inputs on ``device``: u, B, C, D
+    standard normal, dt = softplus(normal - 1), A = -exp(log(n + 1) +
+    0.1 normal) (the hippo init, perturbed), h0 0.3 normal."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(seed + B + S + di + N)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    n = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+    return (r(B, S, di), F.softplus(r(B, S, di) - 1.0), r(B, S, N),
+            r(B, S, N), -torch.exp(torch.log(n) + 0.1 * r(di, N)), r(di),
+            0.3 * r(B, di, N))
+
+
+def ssm_errors(torch, got, want):
+    """y's and hT's largest difference over their largest magnitude."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def phase_ssm_kernel(torch, ops, ref, dev, args, launches):
+    """15 (b): ``selective_scan`` against its plain version on SSM_CASES
+    and on the prefill's first call's inputs ``args``, where it is timed
+    beside the plain version, with its bound. Returns the kernel line's
+    entry."""
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    worst = 0.0
+    for shape in SSM_CASES + ["the prefill's inputs"]:
+        case = args if isinstance(shape, str) else ssm_case(
+            torch, *shape, dev)
+        errs = ssm_errors(torch, selective_scan_cuda(*case),
+                          ref.selective_scan_ref(*case))
+        check(max(errs) <= SSM_TOL,
+              f"selective_scan != plain at {shape}: y and hT differ by "
+              f"{errs} of their largest (> {SSM_TOL})")
+        worst = max(worst, *errs)
+    u, dt, Bm, Cm, A, D, h0 = args
+    B, S, di = u.shape
+    N = A.shape[-1]
+    got = selective_scan_cuda(*args)
+    want = ref.selective_scan_ref(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # u and dt read, y written: B S di float32 each; B, C read; A, D
+    # read; h0 read and hT written. Per (b, t, d, n): dt A, exp, times h,
+    # plus (dt u) B, times C, plus into y: 7 operations, and dt u once
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * N + di * N + di
+                  + 2 * B * di * N)
+    nops = B * S * di * (7 * N + 1)
+    bms, bby = bound_ms(nbytes, nops)
+    kern = lambda: selective_scan_cuda(*args)     # noqa: E731
+    entry = {
+        "name": "selective_scan", "route": "cuda",
+        "source": SOURCES["selective_scan"],
+        "replaces": REPLACES["selective_scan"], "launches": launches,
+        "max_abs_err": err, "max_rel_err_grid": worst,
+        "ms": cuda_ms(kern, reps=10),
+        "plain_ms": cuda_ms(lambda: ref.selective_scan_ref(*args), reps=2),
+        "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        **device_fields(kern, "selective_scan_kernel"),
+        "shape": f"u / dt / y {list(u.shape)}, B / C {list(Bm.shape)}, "
+                 f"d_state {N} (one prefill layer)",
+        "bytes": nbytes, "flops": nops}
+    say(f"phase 15b selective_scan: == plain on {len(SSM_CASES) + 1} cases "
+        f"(largest difference {worst:.3g} of the largest |y| / |hT| <= "
+        f"{SSM_TOL}); at {entry['shape']}: {entry['ms']:.4f} ms per call, "
+        f"device {entry['device_ms']:.4f} ms per launch "
+        f"({entry['device_ms_method']}), plain {entry['plain_ms']:.2f} ms, "
+        f"bound {bms:.4f} ms by {bby} ({nbytes / 1e9:.3f} GB); "
+        f"{launches} launches on the path")
+    return entry
+
+
+def phase_hybrid_train(torch, np, ops, dev, cpu_job):
+    """15 (c): the hybrid training cut's float32 steps on the card
+    against the CPU process's at 13a's rules, then HYBRID_BF16_STEPS bf16
+    steps timed; no kernel launched by any step."""
+    ops.reset_launches()
+    card32, card, card_grads, names = card_train_f32(dev, "hybrid")
+    times = []
+    _, card16 = small_train_run(dev, "bfloat16", steps=HYBRID_BF16_STEPS,
+                                cut="hybrid", times=times)
+    counts = ops.launches()
+    check(all(n == 0 for n in counts.values()),
+          f"15c: the training steps launched kernels: {counts}")
+    check(all(math.isfinite(m["loss"]) for m in card16),
+          f"15c: bf16 losses {[m['loss'] for m in card16]}")
+    t0 = time.perf_counter()
+    cpu = cpu_job.get(timeout=900)
+    waited = time.perf_counter() - t0
+    try:
+        err, sum_lr, named = compare_train(
+            np, "15c", card32, card, card_grads, names,
+            load_cpu_arrays(np, cpu))
+    finally:
+        shutil.rmtree(cpu["dir"], ignore_errors=True)
+    cfg, batch, seq = train_cut("hybrid")
+    timed = sorted(times[1:])
+    med = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    say(f"phase 15c training {cfg.name} cut ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.moe.n_experts} experts top "
+        f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, d_state "
+        f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}; {batch} x {seq} "
+        f"tokens): {len(card32)} float32 steps on the card == the CPU's "
+        f"(losses " + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b
+                                in zip(card32, cpu["float32"]))
+        + f"; master max err {err['master']:.3g} of sum(lr), a share "
+        f"{err['master_tail']:.3g} beyond {TRAIN_MASTER_LR_TOL} "
+        f"({len(named)} elements); m {err['m']:.3g}, v {err['v']:.3g} of "
+        f"each leaf's largest); bf16 step {med:.1f} ms median of the last "
+        f"{len(timed)} ({batch * seq / (med / 1e3):.0f} tokens/s), losses "
+        + ", ".join(f"{m['loss']:.4f}" for m in card16)
+        + f"; no kernel launched; the CPU process took {cpu['s']:.1f} s "
+        f"(waited {waited:.1f} s for it)")
+    return {"float32": card32, "bfloat16": card16, "bf16_step_ms": times,
+            "bf16_step_ms_median": med, "cpu": {
+                k: cpu[k] for k in ("float32", "s")}, "cpu_wait_s": waited,
+            "max_err": err, "sum_lr": sum_lr, "master_tail": named,
+            "launches": counts}
+
+
+def phase_hybrid(torch, np, ops, ref, dev, lm, moe_mod, cpu_job):
+    """Phase 15: (a) HYBRID_ARCH at HYBRID_LAYERS layers served, forked
+    and profiled, (b) selective_scan against its plain version and timed,
+    (c) the training cut against the CPU. Returns the kernel line's
+    selective_scan entry and the detail (with (a)'s flash and rowclone
+    launches)."""
+    configs, _, engine_mod = lm
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = configs.get_config(HYBRID_ARCH).scaled(n_layers=HYBRID_LAYERS)
+    flash_n, out["serve"], model, params, prompts, rec = phase_serve(
+        torch, np, ops, ref, dev, lm, moe_mod, cfg, "phase 15a")
+    rc_n, out["fork"], cache1, fork = phase_fork(
+        torch, ops, dev, lm, model, params, prompts, label="phase 15a")
+    fork_engine = engine_mod.ServeEngine(model, params, model.s_max)
+    out["profile"] = phase_profile(
+        torch, model, params, prompts, fork,
+        lambda: fork_engine.fork_cache(cache1, FORK_N), label="phase 15a")
+    entry = phase_ssm_kernel(torch, ops, ref, dev, rec.scan_args,
+                             out["serve"]["launches"]["selective_scan"])
+    del model, params, rec, cache1, fork, fork_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = phase_hybrid_train(torch, np, ops, dev, cpu_job)
+    out.update(flash_launches=flash_n, rowclone_launches=rc_n,
+               seconds=time.perf_counter() - t_phase)
+    say(f"phase 15 mamba hybrid: {out['seconds']:.1f} s; selective_scan "
+        f"launches {entry['launches']}, flash_attention launches {flash_n}, "
+        f"rowclone_copy launches {rc_n}")
+    return entry, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -3896,6 +4202,7 @@ def main(argv=None):
     # phase 7d's plain-engine search runs beside every phase before it
     first, _ = traces.polybench_trace(traces.POLYBENCH[0], geo)
     search_pool = multiprocessing.get_context("spawn").Pool(1)
+    hybrid_pool = multiprocessing.get_context("spawn").Pool(1)
     cpu_search = search_pool.apply_async(search_job, ({
         f: getattr(first, f)[:SEARCH_CUT]
         for f in ("kind", "bank", "row", "delta", "dep")}, SEARCH_SEED))
@@ -3975,19 +4282,27 @@ def main(argv=None):
         report["train"] = phase_train(torch, np, ops, dev)
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 15c's CPU side runs beside phases 14 and 15a-b
+        hybrid_cpu = hybrid_pool.apply_async(train_cpu_job, ("hybrid",))
         report["moe"] = phase_moe(torch, np, ops, ref, dev, lm, moe_mod)
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry, report["hybrid"] = phase_hybrid(torch, np, ops, ref, dev, lm,
+                                               moe_mod, hybrid_cpu)
         for k in kernels:
-            k["launches"] += {
-                "flash_attention": report["moe"]["flash_launches"],
-                "rowclone_copy": report["moe"]["rowclone_launches"]}.get(
-                    k["name"], 0)
+            k["launches"] += sum(
+                {"flash_attention": r["flash_launches"],
+                 "rowclone_copy": r["rowclone_launches"]}.get(k["name"], 0)
+                for r in (report["moe"], report["hybrid"]))
+        kernels.append(entry)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         rec.restore()
-        search_pool.terminate()
-        search_pool.join()
+        for pool in (search_pool, hybrid_pool):
+            pool.terminate()
+            pool.join()
     report["kernels"] = kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,8 +5,8 @@ Every assigned architecture is a module exposing ``CONFIG: ArchConfig``.
 launchers goes through here.
 
 A copy of the reference package's ``repro.configs`` (pure data), so that
-the port imports nothing of ``repro``; the dense and MoE families build
-in the port so far (``repro_torch.models.model_zoo``).
+the port imports nothing of ``repro``; the dense, MoE and mamba hybrid
+families build in the port so far (``repro_torch.models.model_zoo``).
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    attn_every: int = 1        # hybrid: attention on layers where idx % attn_every == attn_every-1
+    attn_every: int = 1        # hybrid: attention on layers where idx % attn_every == attn_every // 2
     n_enc_layers: int = 0      # encdec only
     n_frames: int = 0          # encdec audio frames (stub frontend)
     n_patches: int = 0         # vlm patch prefix (stub frontend)

@@ -100,9 +100,12 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 def lm_params_from_numpy(tree, device):
     """The reference's LM parameter tree or decode cache (nested dicts,
     numpy leaves with the stacked ``[G, ...]`` layer axis; the cache is
-    ``{"p<i>": {"k", "v"}}``, each ``[G, B, S, KV, hd]``) -> the port's,
-    leaf for leaf, dtype kept (bf16 stays bf16). ``device`` is resolved
-    as the entry points resolve it: ``None`` means CUDA."""
+    ``{"p<i>": {...}}``: an attention position's ``"k"`` / ``"v"`` ``[G,
+    B, S, KV, hd]``, a mamba position's ``"conv"`` ``[G, B, K-1, di]``
+    and ``"h"`` ``[G, B, di, N]``) -> the port's, leaf for leaf, dtype
+    kept (a bf16 k / v / conv stays bf16, a float32 ``h`` float32).
+    ``device`` is resolved as the entry points resolve it: ``None`` means
+    CUDA."""
     dev = resolve_device(device)
 
     def convert(t):

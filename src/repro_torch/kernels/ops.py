@@ -38,14 +38,15 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_vm import policy_vm_cuda
 from repro_torch.kernels.ref_scan import ref_scan_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
+from repro_torch.kernels.selective_scan import selective_scan_cuda
 from repro_torch.kernels.slot_scan import (ScanParams, slot_scan_cuda,
                                           slot_scan_window_cuda)
 
 KERNELS = ("bloom_probe", "policy_vm", "slot_scan", "slot_scan_window",
-           "ref_scan", "flash_attention", "rowclone_copy")
+           "ref_scan", "flash_attention", "rowclone_copy", "selective_scan")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("bloom_probe.cu", "policy_vm.cu", "slot_scan.cu", "ref_scan.cu",
-            "flash_attention.cu", "rowclone_copy.cu")
+            "flash_attention.cu", "rowclone_copy.cu", "selective_scan.cu")
 _HEADERS = ("bloom_hash.cuh", "common.cuh", "policy_vm.cuh", "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -221,12 +222,14 @@ def library() -> ctypes.CDLL:
             lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 7 + [
                 ctypes.c_float, vp]
             lib.rowclone_copy_launch.argtypes = [vp, vp, ll, ll, ll, vp]
+            lib.selective_scan_launch.argtypes = [vp] * 9 + [i] * 4 + [vp]
             for fn in (lib.bloom_probe_launch, lib.policy_vm_launch,
                        lib.policy_vm_wide_launch, lib.slot_scan_launch,
                        lib.slot_scan_wide_launch,
                        lib.slot_scan_window_launch, lib.slot_scan_num_params,
                        lib.ref_scan_launch, lib.ref_scan_num_params,
-                       lib.flash_attention_launch, lib.rowclone_copy_launch):
+                       lib.flash_attention_launch, lib.rowclone_copy_launch,
+                       lib.selective_scan_launch):
                 fn.restype = i
             for src, n in (("slot_scan.cu", lib.slot_scan_num_params()),
                            ("ref_scan.cu", lib.ref_scan_num_params())):
@@ -321,6 +324,25 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route("flash_attention", q) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
     return flash_attention_cuda(q, k, v, causal)
+
+
+def selective_scan(u, dt, Bm, Cm, A, D, h0):
+    """Mamba's selective scan over a whole sequence: u, dt ``[B, S, di]``,
+    Bm / Cm ``[B, S, N]``, A ``[di, N]``, D ``[di]``, h0 ``[B, di, N]``,
+    float32 -> (y ``[B, S, di]``, hT ``[B, di, N]``).
+
+    Forward only, on both routes, as the flash kernel: under autograd
+    with an input that requires grad it raises (the kernel's output would
+    carry no gradient). Training scans through ``models.mamba``'s plain
+    chunked route (``mamba_seq(use_kernel=False)``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, dt, Bm, Cm, A, D, h0)):
+        raise NotImplementedError(
+            "selective_scan has no backward; train through the plain "
+            "chunked scan, mamba_seq(use_kernel=False)")
+    if _route("selective_scan", u) == "cpu":
+        return ref.selective_scan_ref(u, dt, Bm, Cm, A, D, h0)
+    return selective_scan_cuda(u, dt, Bm, Cm, A, D, h0)
 
 
 def rowclone_copy(x: torch.Tensor,

@@ -228,6 +228,21 @@ def rowclone_copy_ref(x: torch.Tensor,
     return out.copy_(x)
 
 
+def selective_scan_ref(u, dt, Bm, Cm, A, D, h0):
+    """The selective scan token by token, as the kernel runs it: ``h_t =
+    exp(dt_t A) h_{t-1} + (dt_t u_t) B_t``, ``y_t = sum_n h_t C_t + D
+    u_t``. Shapes as ``ops.selective_scan``; returns (y, hT) float32."""
+    h = h0.float()
+    ys = []
+    for t in range(u.shape[1]):
+        d_t, u_t = dt[:, t], u[:, t]
+        h = torch.exp(d_t[..., None] * A) * h \
+            + (d_t * u_t)[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]) + u_t * D)
+    y = torch.stack(ys, 1) if ys else torch.empty_like(u, dtype=torch.float32)
+    return y, h
+
+
 def _scatter_(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
     """In place: ``x[b, idx[b]] = val[b]`` for every batch row."""
     x.scatter_(1, idx.long().unsqueeze(1), val.to(x.dtype).unsqueeze(1))

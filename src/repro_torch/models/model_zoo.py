@@ -1,16 +1,17 @@
 """Model zoo: build per-architecture functional models.
 
 ``build(cfg, s_max)`` returns a :class:`Model` whose functions train and
-serve the decoder-only LM, dense or MoE: ``loss_fn`` (train),
-``prefill_fn`` and ``decode_fn`` (serve). The VLM and the
+serve the decoder-only LM, dense, MoE or the mamba hybrid: ``loss_fn``
+(train), ``prefill_fn`` and ``decode_fn`` (serve). The VLM and the
 encoder-decoder are later slices of the port (ROADMAP Queue A 12) and
-raise ``NotImplementedError``, as do mamba and rwkv layers.
+raise ``NotImplementedError``, as do rwkv layers.
 
-The prefill takes the flash kernel by default (``use_flash=True``): the
-reference defaults to its jnp path only for its dry run, which the port
-does not have. ``loss_fn`` always takes the plain attention, as the
-reference's models do (they are built with ``use_flash=False``): neither
-flash kernel has a backward.
+The prefill takes the kernels by default (``use_flash=True``: the flash
+kernel for attention, the selective-scan kernel for a mamba layer's
+scan): the reference defaults to its jnp path only for its dry run,
+which the port does not have. ``loss_fn`` always takes the plain
+attention and the plain chunked scan, as the reference's models do (they
+are built with ``use_flash=False``): neither kernel has a backward.
 """
 from __future__ import annotations
 

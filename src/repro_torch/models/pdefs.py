@@ -20,7 +20,7 @@ import torch
 class ParamDef:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]   # logical axis name per dim (None = replicated)
-    init: str = "normal"                 # normal | zeros | ones
+    init: str = "normal"                 # normal | zeros | ones | hippo
     std: float = 0.02
 
     def __post_init__(self):
@@ -59,7 +59,9 @@ def tree_unflatten(tree, leaves):
 def init_tree(generator: torch.Generator, defs, dtype=torch.float32,
               device=None):
     """Concrete parameters for ``defs`` on ``generator``'s device (or
-    ``device``): normal x std, zeros or ones. The draws differ from the
+    ``device``): normal x std, zeros, ones, or ``"hippo"`` (the S4D-real
+    init of a mamba ``A_log``: ``log(n + 1)`` along the last dim,
+    broadcast over the leading dims). The draws differ from the
     reference's ``jax.random`` ones; tests carry the reference's weights
     over with :func:`repro_torch.interop.lm_params_from_numpy`."""
     dev = torch.device(device) if device is not None else generator.device
@@ -69,10 +71,12 @@ def init_tree(generator: torch.Generator, defs, dtype=torch.float32,
             return torch.zeros(d.shape, dtype=dtype, device=dev)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dtype, device=dev)
+        if d.init == "hippo":
+            row = torch.log(torch.arange(1, d.shape[-1] + 1,
+                                         dtype=torch.float32, device=dev))
+            return row.expand(d.shape).to(dtype).contiguous()
         if d.init != "normal":
-            raise NotImplementedError(
-                f"init {d.init!r} belongs to a block the port does not "
-                f"build yet (ROADMAP Queue A 12)")
+            raise ValueError(f"unknown init {d.init!r}")
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=dev).mul_(d.std)
         return x.to(dtype)

@@ -3,9 +3,10 @@
 A *pattern* of period P describes each layer position's (mixer, mlp)
 pair; parameters are stacked over ``n_layers // P`` groups, and the
 forward passes loop over the groups (the reference scans them with
-``lax.scan``). The port builds attention mixers with dense or MoE MLPs
-(``("attn", "dense")``, ``("attn", "moe")``); mamba and rwkv positions
-raise ``NotImplementedError`` (ROADMAP Queue A 12). ``forward_train`` is
+``lax.scan``). The port builds attention and mamba mixers with dense or
+MoE MLPs (dense and MoE models have P = 1; jamba P = 8: 7 mamba, 1
+attention at position 4, MoE on odd positions); rwkv positions raise
+``NotImplementedError`` (ROADMAP Queue A 12). ``forward_train`` is
 differentiable (``loss_fn``) and returns the MoE aux losses summed over
 the layers; the prefill and decode run under ``torch.no_grad``.
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import pdefs
 from repro_torch.models.pdefs import ParamDef, stack_defs
@@ -60,7 +62,6 @@ def n_groups(cfg) -> int:
 
 
 _NOT_PORTED = {
-    "mamba": "mamba mixers are not ported yet (ROADMAP Queue A 12: mamba hybrid)",
     "rwkv": "rwkv time mix is not ported yet (ROADMAP Queue A 12: rwkv)",
     "rwkv_cm": "rwkv channel mix is not ported yet (ROADMAP Queue A 12: rwkv)",
 }
@@ -80,7 +81,8 @@ def _pos_defs(cfg, mixer, mlp):
     d = cfg.d_model
     return {"ln1": ParamDef((d,), ("hidden",), init="zeros"),
             "ln2": ParamDef((d,), ("hidden",), init="zeros"),
-            "mixer": attn.attn_defs(cfg),
+            "mixer": (mb.mamba_defs(cfg) if mixer == "mamba"
+                      else attn.attn_defs(cfg)),
             "mlp": (moe_mod.moe_defs(cfg) if mlp == "moe"
                     else L.mlp_defs(d, cfg.d_ff, cfg.act))}
 
@@ -119,15 +121,24 @@ def unstack_groups(blocks, G: int) -> list:
 # ---------------- caches ----------------
 
 def cache_specs(cfg, batch: int, s_max: int, dtype=torch.bfloat16):
-    """``{"p<i>": {"k": (shape, dtype), "v": ...}}`` per attention
-    position, each ``[G, B, S, KV, hd]``."""
+    """``{"p<i>": {name: (shape, dtype)}}`` per pattern position, each
+    shape with the leading ``G`` axis: an attention position's ``"k"``
+    and ``"v"`` ``[G, B, S, KV, hd]`` in ``dtype``; a mamba position's
+    ``"conv"`` ``[G, B, K-1, di]`` in ``dtype`` and ``"h"`` ``[G, B, di,
+    N]`` in float32."""
     pat = layer_pattern(cfg)
     _check_ported(pat)
     G = n_groups(cfg)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (G, batch, s_max, KV, hd)
-    return {f"p{i}": {"k": (shape, dtype), "v": (shape, dtype)}
-            for i in range(len(pat))}
+    kv = (G, batch, s_max, KV, hd)
+    out = {}
+    for i, (mx, _) in enumerate(pat):
+        if mx == "mamba":
+            out[f"p{i}"] = {name: ((G,) + shape, dt) for name, (shape, dt)
+                            in mb.mamba_state_defs(cfg, batch, dtype).items()}
+        else:
+            out[f"p{i}"] = {"k": (kv, dtype), "v": (kv, dtype)}
+    return out
 
 
 def init_cache(cfg, batch, s_max, dtype=torch.bfloat16, device=None):
@@ -151,39 +162,60 @@ def _mlp(cfg, ml, p, h):
     return L.mlp_apply(p, h, cfg.act), None
 
 
+def _sublayer(cfg, mx, ml, p, x, rope_sc, use_flash):
+    """One layer position over a full sequence: (x, state, aux) with the
+    mixer's new cache entries (attention ``(k, v)``, mamba ``{"conv",
+    "h"}``) and the MoE aux losses (None for a dense MLP)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mx == "mamba":
+        y, st = mb.mamba_seq(p["mixer"], cfg, h, use_kernel=use_flash)
+    else:
+        y, st = attn.attn_apply(p["mixer"], cfg, h, rope_sc, causal=True,
+                                use_flash=use_flash)
+    x = x + y
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, a = _mlp(cfg, ml, p["mlp"], h)
+    return x + y, st, a
+
+
 def _block_seq(cfg, pat, params_g, x, rope_sc, use_flash, mode="prefill"):
-    """Apply one pattern group over a full sequence. Returns (x, kv, aux)
-    with each attention position's (k, v) in the compute dtype for a
-    prefill, kv None in ``mode="train"`` (nothing kept past the group),
-    and aux the group's MoE aux losses summed over its positions (0.0
-    without an MoE position)."""
-    kv = {} if mode == "prefill" else None
+    """Apply one pattern group over a full sequence. Returns (x, states,
+    aux): for a prefill each position's new cache entries in the compute
+    dtype (attention ``(k, v)``, mamba ``{"conv", "h"}``), None in
+    ``mode="train"`` (nothing kept past the group); aux the group's MoE
+    aux losses summed over its positions (0.0 without an MoE position).
+
+    In training a group of more than one position recomputes each
+    position in the backward pass (the reference's ``inner_ckpt``), so
+    the group's backward holds one position's recompute at a time."""
+    states = {} if mode == "prefill" else None
     aux = {"moe_aux": 0.0, "moe_z": 0.0}
+    inner = mode == "train" and len(pat) > 1
     for i, (mx, ml) in enumerate(pat):
-        p = params_g[f"p{i}"]
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, kv_i = attn.attn_apply(p["mixer"], cfg, h, rope_sc, causal=True,
-                                  use_flash=use_flash)
-        if kv is not None:
-            kv[f"p{i}"] = kv_i
-        x = x + y
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        y, a = _mlp(cfg, ml, p["mlp"], h)
+        args = (cfg, mx, ml, params_g[f"p{i}"], x, rope_sc, use_flash)
+        x, st, a = L.remat(_sublayer, *args) if inner else _sublayer(*args)
+        if states is not None:
+            states[f"p{i}"] = st
         if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
-        x = x + y
-    return x, kv, aux
+    return x, states, aux
 
 
 def _block_decode(cfg, pat, params_g, x, rope_sc, cache_g, pos: int):
     """One pattern group, single-token decode; updates ``cache_g`` (this
-    group's ``[B, S, KV, hd]`` slices) in place. Returns x."""
+    group's slices: ``[B, S, KV, hd]`` k / v, mamba ``conv`` / ``h``) in
+    place, each new state cast to its leaf's dtype. Returns x."""
     for i, (mx, ml) in enumerate(pat):
         p = params_g[f"p{i}"]
         c = cache_g[f"p{i}"]
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, _ = attn.attn_decode(p["mixer"], cfg, h, rope_sc, c["k"], c["v"],
-                                pos)
+        if mx == "mamba":
+            y, st = mb.mamba_decode(p["mixer"], cfg, h, c)
+            c["conv"].copy_(st["conv"])
+            c["h"].copy_(st["h"])
+        else:
+            y, _ = attn.attn_decode(p["mixer"], cfg, h, rope_sc, c["k"],
+                                    c["v"], pos)
         x = x + y
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _mlp(cfg, ml, p["mlp"], h)[0]
@@ -219,7 +251,8 @@ def forward_train(params, cfg, x, positions, remat=True, use_flash=True):
 def forward_prefill(params, cfg, x, positions, s_max,
                     cache_dtype=torch.bfloat16, use_flash=True):
     """Returns (hidden, cache). Prompt length must equal s_max for the
-    attention cache; k / v are stored in ``cache_dtype``."""
+    attention cache; k / v and mamba ``conv`` are stored in
+    ``cache_dtype``, mamba ``h`` in float32."""
     pat = layer_pattern(cfg)
     if x.shape[1] != s_max:
         raise ValueError(f"prefill of {x.shape[1]} tokens into an "
@@ -227,11 +260,14 @@ def forward_prefill(params, cfg, x, positions, s_max,
     rope_sc = _rope_sc(cfg, positions)
     cache = init_cache(cfg, x.shape[0], s_max, cache_dtype, x.device)
     for g in range(n_groups(cfg)):
-        x, kv, _ = _block_seq(cfg, pat, group_params(params["blocks"], g),
-                              x, rope_sc, use_flash)
-        for pos, (k, v) in kv.items():
-            cache[pos]["k"][g] = k
-            cache[pos]["v"][g] = v
+        x, states, _ = _block_seq(cfg, pat,
+                                  group_params(params["blocks"], g), x,
+                                  rope_sc, use_flash)
+        for pos, st in states.items():
+            if isinstance(st, tuple):
+                st = dict(zip(("k", "v"), st))
+            for name, t in st.items():
+                cache[pos][name][g] = t     # cast to the leaf's dtype
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 

@@ -108,9 +108,11 @@ class ServeEngine:
         """Duplicate a batch-1 cache into n continuations (beam / prefix
         fork).
 
-        With ``use_kernel`` each 5-D leaf ``[G, 1, ...]`` is copied n
-        times by the ``rowclone_copy`` kernel, each copy straight into its
-        slot of the ``[G, n, ...]`` output; otherwise leaves are tiled."""
+        With ``use_kernel`` each 5-D leaf ``[G, 1, ...]`` (attention k /
+        v) is copied n times by the ``rowclone_copy`` kernel, each copy
+        straight into its slot of the ``[G, n, ...]`` output; the other
+        leaves (a mamba position's ``conv`` / ``h``), and every leaf
+        without ``use_kernel``, are tiled."""
         def one(x):
             if isinstance(x, dict):
                 return {k: one(v) for k, v in x.items()}

@@ -25,6 +25,7 @@ from repro_torch.kernels.policy_vm import FAST_TABLE as VM_FAST_TABLE
 from repro_torch.kernels.policy_vm import policy_vm_cuda
 from repro_torch.kernels.ref_scan import ref_scan_cuda
 from repro_torch.kernels.rowclone_copy import rowclone_copy_cuda
+from repro_torch.kernels.selective_scan import selective_scan_cuda
 from repro_torch.kernels.slot_scan import (FAST_BANKS, FAST_Q, FAST_TABLE,
                                            RESP_RING, ScanParams,
                                            instantiation, slot_scan_cuda,
@@ -918,6 +919,10 @@ def test_empty_input_launches_and_counts_nothing(cuda_device, name):
         out = flash_attention_cuda(kv[:0], kv, kv, causal=True)
     elif name == "rowclone_copy":
         out = ops.rowclone_copy(torch.zeros((0, 8), device=cuda_device))
+    elif name == "selective_scan":
+        case = chip_smoke.ssm_case(torch, 2, 0, 24, 16, cuda_device)
+        out, hT = ops.selective_scan(*case)
+        assert torch.equal(hT, case[-1])
     elif name == "ref_scan":
         e = torch.empty((0, 64), dtype=torch.int32, device=cuda_device)
         costs = torch.empty((0, 2), dtype=torch.int32, device=cuda_device)
@@ -1138,3 +1143,44 @@ def test_moe_prefill_and_train_step_on_the_card_match_the_cpu(cuda_device):
     assert chip_smoke.same_routing(torch, gr, gr2) and torch.equal(gl, gl2)
     for k in ("loss", "moe_aux", "moe_z"):
         np.testing.assert_allclose(gm[k], cm[k], rtol=1e-5, err_msg=k)
+
+
+# ---- the selective scan (mamba's prefill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.SSM_CASES)
+def test_selective_scan_kernel_matches_plain(cuda_device, shape):
+    """y and hT within chip_smoke.SSM_TOL of their largest magnitude on
+    chip_smoke.SSM_CASES (both d_states, batches 1 and 4, token counts
+    past the 32-token tile, a tail block of channels, jamba's prefill),
+    one launch counted per call."""
+    case = chip_smoke.ssm_case(torch, *shape, cuda_device)
+    ops.reset_launches()
+    got = ops.selective_scan(*case)
+    assert ops.launches()["selective_scan"] == 1
+    want = ref.selective_scan_ref(*case)
+    assert got[0].shape == case[0].shape and got[1].shape == case[-1].shape
+    errs = chip_smoke.ssm_errors(torch, got, want)
+    assert max(errs) <= chip_smoke.SSM_TOL, errs
+
+
+@pytest.mark.cuda
+def test_selective_scan_cuda_refusals(cuda_device):
+    """d_state outside {8, 16}, a non-float32 or non-contiguous input, a
+    CPU tensor and an input under autograd are refused before a launch."""
+    case = chip_smoke.ssm_case(torch, 1, 40, 32, 16, cuda_device)
+    ops.reset_launches()
+    bad = chip_smoke.ssm_case(torch, 1, 40, 32, 4, cuda_device)
+    with pytest.raises(ValueError, match="d_state"):
+        selective_scan_cuda(*bad)
+    with pytest.raises(ValueError, match="float32"):
+        selective_scan_cuda(case[0].double(), *case[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        u = case[0].transpose(1, 2).contiguous().transpose(1, 2)
+        selective_scan_cuda(u, *case[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_cuda(case[0].cpu(), *case[1:])
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.selective_scan(case[0].clone().requires_grad_(), *case[1:])
+    assert ops.launches()["selective_scan"] == 0

@@ -444,8 +444,8 @@ def test_full_width_defs_match_jax(arch):
         == jtf.cache_specs(get_config(arch), 4, 1040)["p0"]["k"].shape
 
 
-@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "rwkv6_3b",
-                                  "whisper_base", "llava_next_34b"])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "whisper_base",
+                                  "llava_next_34b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pzoo.build(pconfigs.get_config(arch), s_max=16)
@@ -465,6 +465,35 @@ def test_moe_families_build(arch):
         "gate": (cfg.n_layers, E, d, f), "down": (cfg.n_layers, E, f, d)}
     assert model.n_params() == jzoo.build(get_config(arch),
                                           s_max=16).n_params()
+
+
+@pytest.mark.parametrize("n_layers", [8, 32])
+def test_hybrid_family_builds(n_layers):
+    """jamba-v0.1 builds at full width (definitions only: nothing is
+    allocated) with the reference's pattern, leaves, cache and parameter
+    count: 13,295,235,072 at one 8-layer period, 51.57 B at full depth."""
+    jcfg = get_config("jamba_v0_1_52b").scaled(n_layers=n_layers)
+    model = pzoo.build(pconfigs.get_config("jamba_v0_1_52b").scaled(
+        n_layers=n_layers), s_max=16)
+    cfg = model.cfg
+    pat = ptf.layer_pattern(cfg)
+    assert pat == jtf.layer_pattern(jcfg)
+    assert [mx for mx, _ in pat] == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
+    assert [ml for _, ml in pat] == ["dense", "moe"] * 4
+    jdefs = jtf.lm_defs(jcfg)
+    jl = jax.tree_util.tree_leaves_with_path(jdefs, is_leaf=jpdefs.is_def)
+    pl = ppdefs.tree_leaves(model.defs)
+    assert [d.shape for _, d in jl] == [d.shape for d in pl]
+    assert [d.init for _, d in jl] == [d.init for d in pl]
+    assert model.n_params() == jzoo.build(jcfg, s_max=16).n_params()
+    if n_layers == 8:
+        assert model.n_params() == 13_295_235_072
+    jspecs = jtf.cache_specs(jcfg, 4, 1040)
+    for pos, leaves in ptf.cache_specs(cfg, 4, 1040).items():
+        assert sorted(leaves) == sorted(jspecs[pos])
+        for name, (shape, dt) in leaves.items():
+            assert shape == jspecs[pos][name].shape, (pos, name)
+            assert str(dt)[6:] == str(jspecs[pos][name].dtype), (pos, name)
 
 
 def test_loss_fn_raises_and_init_needs_a_device():
